@@ -1,0 +1,126 @@
+"""Batched camera models (port of ``absolutetrack_tpu/geometry/camera.py``).
+
+Conventions as in the JAX package: ``v`` eye-space 3D, ``p = project(v)``,
+``q = distort(p)``, window ``w = q * f + c``. Points are shaped
+``cam_batch + (N, 2|3)``. ``undistort`` and ``window_to_eye`` serve only
+the 2D-keypoint path and are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from . import affine
+
+PINHOLE = "pinhole"
+FISHEYE62 = "fisheye62"
+
+
+class Camera(NamedTuple):
+    """Struct-of-arrays camera; fields share a batch shape ``B...``.
+
+    fx, fy, cx, cy, width, height : (B...,)
+    coeffs           : (B..., 8) [k1 k2 k3 k4 p1 p2 k5 k6]; zeros for pinhole
+    T_world_from_eye : (B..., 4, 4) camera-to-world rigid transform
+    """
+
+    fx: torch.Tensor
+    fy: torch.Tensor
+    cx: torch.Tensor
+    cy: torch.Tensor
+    coeffs: torch.Tensor
+    T_world_from_eye: torch.Tensor
+    width: torch.Tensor
+    height: torch.Tensor
+
+    @property
+    def batch_shape(self):
+        return self.fx.shape
+
+    def map(self, fn) -> "Camera":
+        """Apply ``fn`` to every field (index, reshape, move)."""
+        return Camera(*(fn(x) for x in self))
+
+    def to(self, device) -> "Camera":
+        return self.map(lambda x: x.to(device))
+
+
+def project(v: torch.Tensor, kind: str, eps: float = 2.0**-128) -> torch.Tensor:
+    """Eye-space 3D -> normalized 2D image coords.
+
+    ``eps`` is an f32 subnormal: the on-axis pixel (r == 0) gives 0/eps = 0
+    only where subnormals are not flushed to zero.
+    """
+    if kind == PINHOLE:
+        return v[..., :2] / v[..., 2:3]
+    if kind == FISHEYE62:
+        x, y, z = v.unbind(-1)
+        r = torch.sqrt(x * x + y * y)
+        s = torch.atan2(r, z) / torch.clamp(r, min=eps)
+        return torch.stack([x * s, y * s], dim=-1)
+    raise ValueError(f"unknown projection kind {kind!r}")
+
+
+def distort(coeffs: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Fisheye62 forward distortion: 6 radial + 2 tangential terms."""
+    k1, k2, k3, k4, p1, p2, k5, k6 = coeffs.unbind(-1)
+    r2 = torch.clamp(torch.sum(p * p, dim=-1), -math.pi**2, math.pi**2)
+    r4 = r2 * r2
+    r6 = r2 * r4
+    r8 = r4 * r4
+    r10 = r4 * r6
+    r12 = r6 * r6
+    radial = 1 + k1 * r2 + k2 * r4 + k3 * r6 + k4 * r8 + k5 * r10 + k6 * r12
+    uv = p * radial[..., None]
+    x, y = uv.unbind(-1)
+    x2, y2, xy = x * x, y * y, x * y
+    rr = x2 + y2
+    x_out = x + 2 * p2 * xy + p1 * (rr + 2 * x2)
+    y_out = y + 2 * p1 * xy + p2 * (rr + 2 * y2)
+    return torch.stack([x_out, y_out], dim=-1)
+
+
+def world_to_eye(cam: Camera, v: torch.Tensor) -> torch.Tensor:
+    """World points -> eye space: R^T (v - t)."""
+    t = cam.T_world_from_eye[..., :3, 3]
+    if v.dim() == cam.T_world_from_eye.dim() - 1:
+        return torch.einsum("...ji,...j->...i", cam.T_world_from_eye[..., :3, :3], v - t)
+    d = v - t[..., None, :]
+    return torch.einsum("...ji,...nj->...ni", cam.T_world_from_eye[..., :3, :3], d)
+
+
+def eye_to_world(cam: Camera, v: torch.Tensor) -> torch.Tensor:
+    return affine.transform_points(cam.T_world_from_eye, v)
+
+
+def eye_to_window(cam: Camera, v: torch.Tensor, kind: str) -> torch.Tensor:
+    """Eye 3D -> window (pixel) coords: distort(project(v)) * f + c.
+
+    Camera fields gain one trailing axis to align with the points' N axis;
+    extra leading point dims broadcast numpy-style.
+    """
+    q = distort(cam.coeffs[..., None, :], project(v, kind))
+    f = torch.stack([cam.fx[..., None], cam.fy[..., None]], dim=-1)
+    c = torch.stack([cam.cx[..., None], cam.cy[..., None]], dim=-1)
+    return q * f + c
+
+
+def world_to_window(cam: Camera, v: torch.Tensor, kind: str) -> torch.Tensor:
+    return eye_to_window(cam, world_to_eye(cam, v), kind)
+
+
+def intrinsics_matrix(cam: Camera) -> torch.Tensor:
+    """(B..., 3, 3) pinhole intrinsics [[fx 0 cx][0 fy cy][0 0 1]]."""
+    z = torch.zeros_like(cam.fx)
+    o = torch.ones_like(cam.fx)
+    return torch.stack(
+        [
+            torch.stack([cam.fx, z, cam.cx], dim=-1),
+            torch.stack([z, cam.fy, cam.cy], dim=-1),
+            torch.stack([z, z, o], dim=-1),
+        ],
+        dim=-2,
+    )

@@ -1,0 +1,80 @@
+"""Carry the JAX package's parameters into the port's modules.
+
+The JAX param tree (``absolutetrack_tpu.models.umetrack.init_umetrack_params``
+or a converted checkpoint) is nested dicts and lists of arrays: HWIO conv
+weights, (in, out) linear weights, BN already folded. Convs become OIHW,
+linear weights are transposed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..utils.runtime import resolve_device
+from .config import ModelConfig
+from .layers import BasicBlock
+from .umetrack import UmeTrackModel
+
+
+def _copy(dst: torch.Tensor, src: np.ndarray, name: str) -> None:
+    src = torch.from_numpy(np.array(src, dtype=np.float32))
+    if src.shape != dst.shape:
+        raise ValueError(f"{name}: JAX shape {tuple(src.shape)} != port shape {tuple(dst.shape)}")
+    with torch.no_grad():
+        dst.copy_(src)
+
+
+def _conv(c: nn.Conv2d, p: dict, name: str) -> None:
+    _copy(c.weight, np.asarray(p["w"]).transpose(3, 2, 0, 1), name + ".w")
+    _copy(c.bias, np.asarray(p["b"]), name + ".b")
+
+
+def _block(blk: BasicBlock, p: dict, name: str) -> None:
+    _conv(blk.conv1, p["conv1"], name + ".conv1")
+    _conv(blk.conv2, p["conv2"], name + ".conv2")
+    if (blk.downsample is None) != ("downsample" not in p):
+        raise ValueError(f"{name}: downsample present in only one tree")
+    if blk.downsample is not None:
+        _conv(blk.downsample, p["downsample"], name + ".downsample")
+
+
+def _regressor(reg, p: dict, name: str) -> None:
+    if len(reg.blocks) != len(p["blocks"]):
+        raise ValueError(f"{name}: block count differs")
+    for i, (blk, bp) in enumerate(zip(reg.blocks, p["blocks"])):
+        _block(blk, bp, f"{name}.blocks{i}")
+    _conv(reg.out, p["out"], name + ".out")
+
+
+def load_jax_params(tree: dict, cfg: ModelConfig = ModelConfig(), device=None) -> UmeTrackModel:
+    """A ``UmeTrackModel`` holding the weights of a JAX param tree."""
+    model = UmeTrackModel(cfg, device="cpu")
+
+    bb, pb = model.backbone, tree["backbone"]
+    _conv(bb.stem, pb["stem"], "backbone.stem")
+    for si, stage in enumerate(bb.stages):
+        if len(stage) != len(pb[f"stage{si}"]):
+            raise ValueError(f"backbone.stage{si}: block count differs")
+        for bi, blk in enumerate(stage):
+            _block(blk, pb[f"stage{si}"][bi], f"backbone.stage{si}.{bi}")
+    _conv(bb.proj, pb["proj"], "backbone.proj")
+
+    pf = tree["fusion"]
+    if len(model.fusion.blocks) != len(pf["blocks"]):
+        raise ValueError("fusion: block count differs")
+    for i, c in enumerate(model.fusion.blocks):
+        _conv(c, pf["blocks"][i], f"fusion.blocks{i}")
+    _conv(model.fusion.final, pf["final"], "fusion.final")
+
+    for i, c in enumerate(model.temporal.blocks):
+        _conv(c, tree["temporal"]["blocks"][i], f"temporal.blocks{i}")
+
+    fc = tree["skeleton_encoder"]["fc"]
+    _copy(model.skeleton_encoder.fc.weight, np.asarray(fc["w"]).T, "skeleton_encoder.fc.w")
+    _copy(model.skeleton_encoder.fc.bias, np.asarray(fc["b"]), "skeleton_encoder.fc.b")
+
+    _regressor(model.regressor_k, tree["regressor_k"], "regressor_k")
+    _regressor(model.regressor_u, tree["regressor_u"], "regressor_u")
+    return model.to(resolve_device(device))

@@ -1,0 +1,665 @@
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds kernel K1 (``absolutetrack_tpu_torch/csrc/bilinear_sample.cu``)
+with nvcc and holds it against its plain PyTorch version on the card at
+the main path's shape (4 slots x 96x96) and at the 24-recording lockstep
+shape (96 slots), timing each by CUDA-graph replay (device time) and by
+eager calls. Then it tracks a synthetic scene at full ``ModelConfig()``
+width with TF32 off: 32 frames with the tracked pose fed back into the
+next frame's crops (K1's launches counted from 0: one a frame), twice
+more for the spread, a synchronised stage breakdown, a ``torch.profiler``
+trace for the device's busy time, and 8 frames with crops from given
+poses, compared with the port's own CPU run. Prints the card's name and power
+limit first, one ``{"path": ...}`` line, one ``{"kernels": [...]}`` line
+and, last, ``{"ok": true, "device": ...}``. Any failed check raises;
+without a CUDA device, or without the port beside it, it exits non-zero
+and prints no result.
+
+``build_scene`` is importable (numpy only) so the tests reuse the scene.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+N_VIEWS = 4
+SRC_HW = (480, 636)  # the sensor
+PAD_HW = (512, 640)  # frames upload zero-padded to this
+FEEDBACK_FRAMES = 32
+GIVEN_POSE_FRAMES = 8
+K1_TOL = 1e-3  # 0..255 scale; K1 rounds every product and sum as the plain version does
+LANDMARK_TOL_MM = 0.5
+ANGLE_TOL = 1e-3
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+
+
+# --------------------------------------------------------------------------
+# hermetic synthetic scene (numpy only)
+# --------------------------------------------------------------------------
+
+
+def _rot_x(deg):
+    a = math.radians(deg)
+    c, s = math.cos(a), math.sin(a)
+    return np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
+
+
+def _rot_y(deg):
+    a = math.radians(deg)
+    c, s = math.cos(a), math.sin(a)
+    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+
+
+def _rot_z(deg):
+    a = math.radians(deg)
+    c, s = math.cos(a), math.sin(a)
+    return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+
+
+def synthetic_hand_model() -> dict:
+    """A left-canonical hand in mm with the fields of the JAX HandModel:
+    5 four-joint fingers along +y from the wrist, flexion about x,
+    abduction about z, 21 landmarks skinned to 1-2 of the 17 frames."""
+    base_x = [-32.0, -18.0, -2.0, 14.0, 28.0]
+    base_y = [12.0, 40.0, 42.0, 40.0, 36.0]
+    seg = [17.0, 22.0, 25.0, 23.0, 18.0]
+    splay = [-35.0, -6.0, 0.0, 6.0, 12.0]  # finger direction in the palm plane, deg
+    jp = np.zeros((22, 3))
+    axes = np.zeros((22, 3))
+    lm = np.zeros((21, 3))
+    bw = np.zeros((21, 3))
+    bi = np.zeros((21, 3), np.int64)
+    for f in range(5):
+        d = _rot_z(splay[f]) @ np.array([0.0, 1.0, 0.0])
+        for j in range(4):
+            jp[4 * f + j] = [base_x[f], base_y[f], 0.0] + j * seg[f] * d
+            axes[4 * f + j] = [0.0, 0.0, 1.0] if j == 0 else _rot_z(splay[f]) @ [1.0, 0.0, 0.0]
+        frame = 2 + 3 * f  # frames 2-4 of finger f follow joints 0-1, 0-2, 0-3
+        lm[f] = jp[4 * f + 3] + seg[f] * d  # fingertip
+        bw[f, 0], bi[f, 0] = 1.0, frame + 2
+        for j in range(3):  # landmarks at joints 1-3
+            k = 6 + 3 * f + j
+            lm[k] = jp[4 * f + 1 + j]
+            bw[k, :2] = (0.7, 0.3) if j else (1.0, 0.0)
+            bi[k, :2] = (frame + j, frame + max(j - 1, 0))
+    axes[20], axes[21] = [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]
+    bw[5, 0], bi[5, 0] = 1.0, 1  # wrist landmark on the wrist frame
+    limits = np.tile([[-0.2, 1.4]], (22, 1))
+    limits[0::4][:5] = [-0.35, 0.35]
+    limits[20:] = [-0.6, 0.6]
+    idx = np.arange(22)
+    return dict(
+        joint_rotation_axes=axes.astype(np.float32),
+        joint_rest_positions=jp.astype(np.float32),
+        joint_frame_index=idx,
+        joint_parent=np.where(idx % 4 == 0, 21, idx - 1),
+        joint_first_child=np.where(idx % 4 == 3, -1, idx + 1),
+        joint_next_sibling=np.where(idx < 16, idx + 4, -1),
+        landmark_rest_positions=lm.astype(np.float32),
+        landmark_rest_bone_weights=bw.astype(np.float32),
+        landmark_rest_bone_indices=bi,
+        joint_limits=limits.astype(np.float32),
+    )
+
+
+def build_scene(seed: int = 0, n_frames: int = FEEDBACK_FRAMES) -> dict:
+    """A 4-camera fisheye62 rig (rolled 0/90/90/180 deg), two hands about
+    350 mm in front of it moving slowly, and uint8 frames."""
+    rng = np.random.default_rng(seed)
+    h, w = SRC_HW
+    rolls = np.array([0.0, 90.0, 90.0, 180.0])
+    positions = [[-45, -15, 0], [45, -15, 0], [-55, 20, -5], [55, 20, -5]]
+    yaw_pitch = [(-15, 5), (15, 5), (-25, 12), (25, 12)]
+    c2w = np.tile(np.eye(4), (N_VIEWS, 1, 1))
+    for v in range(N_VIEWS):
+        body = _rot_y(yaw_pitch[v][0]) @ _rot_x(yaw_pitch[v][1])
+        c2w[v, :3, :3] = body @ _rot_z(-rolls[v])
+        c2w[v, :3, 3] = positions[v]
+    coeffs = np.zeros((N_VIEWS, 8))
+    coeffs[:, :4] = [-0.02, 0.004, -0.0008, 0.0001] * (1 + 0.1 * rng.standard_normal((N_VIEWS, 4)))
+    coeffs[:, 4:6] = 1e-4 * rng.standard_normal((N_VIEWS, 2))
+    cameras = dict(
+        fx=230.0 + rng.uniform(-5, 5, N_VIEWS),
+        fy=230.0 + rng.uniform(-5, 5, N_VIEWS),
+        cx=(w - 1) / 2 + rng.uniform(-3, 3, N_VIEWS),
+        cy=(h - 1) / 2 + rng.uniform(-3, 3, N_VIEWS),
+        coeffs=coeffs,
+        width=np.full(N_VIEWS, float(w)),
+        height=np.full(N_VIEWS, float(h)),
+    )
+
+    t = np.arange(n_frames)[:, None]
+    ja = np.zeros((n_frames, 2, 22))
+    ja[:, :, :20] = 0.25 + 0.15 * np.sin(0.2 * t[..., None] + rng.uniform(0, 6, (1, 2, 20)))
+    ja[:, :, 0:20:4] *= 0.3  # small abduction
+    palm_to_rig = np.diag([1.0, -1.0, -1.0])  # fingers up, palm toward the rig
+    mirror = np.diag([-1.0, 1.0, 1.0])
+    wrist = np.tile(np.eye(4), (n_frames, 2, 1, 1))
+    for i in range(n_frames):
+        rot = _rot_y(10 * math.sin(0.1 * i)) @ _rot_x(15) @ palm_to_rig
+        wrist[i, 0, :3, :3] = rot
+        wrist[i, 1, :3, :3] = mirror @ rot @ mirror  # the right hand mirrors the left
+        wrist[i, 0, :3, 3] = [-80 + 15 * math.sin(0.15 * i), 20 + 10 * math.cos(0.1 * i), 350]
+        wrist[i, 1, :3, 3] = [85 - 10 * math.sin(0.12 * i), 25, 340 + 20 * math.sin(0.1 * i)]
+
+    return dict(
+        cameras=cameras,
+        camera_angles=rolls.astype(np.float32),
+        camera_to_world=np.tile(c2w, (n_frames, 1, 1, 1)).astype(np.float32),
+        hand_model=synthetic_hand_model(),
+        joint_angles=ja.astype(np.float32),
+        wrist_transforms=wrist.astype(np.float32),
+        hand_confidences=np.ones((n_frames, 2), np.float32),
+        frames=rng.integers(0, 256, (n_frames, N_VIEWS, h, w), dtype=np.uint8),
+    )
+
+
+def pad_frames(frames: np.ndarray, pad_hw=PAD_HW) -> np.ndarray:
+    """(..., H, W) -> (..., hp, wp) zero-padded."""
+    out = np.zeros(frames.shape[:-2] + tuple(pad_hw), frames.dtype)
+    out[..., : frames.shape[-2], : frames.shape[-1]] = frames
+    return out
+
+
+def border_coords(valid_hw) -> np.ndarray:
+    """(K, 2) source coordinates (x, y) that probe the sampler's edges: -1
+    markers, points just inside and just outside each border of the valid
+    extent (x in [0, w-1), y in [0, h-1)), a NaN and far-out values."""
+    h, w = valid_hw
+
+    def below(v):
+        return float(np.nextafter(np.float32(v), np.float32(-1)))
+
+    return np.array(
+        [
+            (-1.0, -1.0), (0.0, 100.0), (-1e-6, 100.0), (below(w - 1), 100.0),
+            (w - 1.0, 100.0), (w - 0.5, 100.0), (100.0, 0.0), (100.0, -1e-6),
+            (100.0, below(h - 1)), (100.0, h - 1.0), (100.0, h - 0.5),
+            (0.0, 0.0), (below(w - 1), below(h - 1)), (np.nan, 10.0),
+            (1e9, 10.0), (-1e9, 10.0),
+        ],
+        np.float32,
+    )
+
+
+# --------------------------------------------------------------------------
+# the port on a device
+# --------------------------------------------------------------------------
+
+
+def torch_scene(scene: dict, device) -> dict:
+    """The scene as the port's tensors on ``device``, the frames zero-padded
+    to ``PAD_HW`` as a caller uploads them (sample with ``src_valid_hw=SRC_HW``)."""
+    import torch
+
+    from absolutetrack_tpu_torch.geometry import camera as cam
+    from absolutetrack_tpu_torch.kinematics.hand_model import hand_model_from_dict
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    c = scene["cameras"]
+    return dict(
+        cameras=cam.Camera(
+            fx=f32(c["fx"]), fy=f32(c["fy"]), cx=f32(c["cx"]), cy=f32(c["cy"]),
+            coeffs=f32(c["coeffs"]),
+            T_world_from_eye=f32(scene["camera_to_world"][0]),
+            width=f32(c["width"]), height=f32(c["height"]),
+        ),
+        camera_angles=f32(scene["camera_angles"]),
+        camera_to_world=f32(scene["camera_to_world"]),
+        hand_model=hand_model_from_dict(scene["hand_model"], device=device),
+        joint_angles=f32(scene["joint_angles"]),
+        wrist_transforms=f32(scene["wrist_transforms"]),
+        hand_confidences=f32(scene["hand_confidences"]),
+        frames=torch.as_tensor(pad_frames(scene["frames"]), device=device),
+    )
+
+
+def with_pose_prior(model, ts: dict, crop_size, scale: float = 1e-5):
+    """A copy of ``model`` whose known-skeleton head predicts, up to
+    ``scale`` times its random output, the scene's first pose in crop
+    coordinates.
+
+    Random weights put the tracked wrist anywhere, so tracked-pose feedback
+    would lose the hands after one frame. A pose that is constant in crop
+    coordinates is a fixed point of the feedback loop (the crop camera
+    looks at the hand's center, which the prediction keeps on the axis),
+    so the loop holds the hands in view as a trained model would.
+    """
+    import torch
+
+    from absolutetrack_tpu_torch.models.regressor import output_dims
+    from absolutetrack_tpu_torch.tracker.crop_gen import gen_crop_slots
+
+    slots = gen_crop_slots(
+        ts["cameras"], ts["camera_angles"], ts["hand_model"],
+        ts["joint_angles"][0], ts["wrist_transforms"][0], ts["hand_confidences"][0],
+        crop_size,
+    )
+    if not bool(slots.hand_valid[0]):
+        raise RuntimeError("scene: the left hand is not in view at frame 0")
+    ext = slots.cameras.T_world_to_eye[0, 0].clone()
+    ext[:3, 3] *= 1e-3
+    wrist = ts["wrist_transforms"][0, 0].clone()
+    wrist[:3, 3] *= 1e-3
+    b = ext @ wrist  # wrist in the crop camera, meters
+    head = copy.deepcopy(model)
+    out = head.regressor_k.out
+    template = head.regressor_k.template
+    pts = template @ b[:3, :3].T + b[:3, 3]
+    ranges, _ = output_dims(False, template.shape[0])
+    with torch.no_grad():
+        out.weight.mul_(scale)
+        out.bias.zero_()
+        r = ranges["joint_angles"]
+        out.bias[r[0]:r[1]] = ts["joint_angles"][0, 0, :20]
+        r = ranges["wrist_xfs"]
+        out.bias[r[0]:r[1]] = pts.reshape(-1)
+    return head
+
+
+def damped(model, head_scale: float = 0.02, memory_scale: float = 0.1):
+    """A copy of ``model`` with the regression heads' output convs scaled by
+    ``head_scale`` and the ConvRNN by ``memory_scale``.
+
+    At random init the heads' outputs are ~+-40, which makes the Procrustes
+    wrist decode ill-conditioned, and the memory loop has a spectral radius
+    above 1: f32 summation-order noise between two devices then grows past
+    any fixed tolerance. Damped, the outputs have a trained model's scale.
+    """
+    import torch
+
+    out = copy.deepcopy(model)
+    with torch.no_grad():
+        for conv in (out.regressor_k.out, out.regressor_u.out):
+            conv.weight.mul_(head_scale)
+            conv.bias.mul_(head_scale)
+        for conv in out.temporal.blocks:
+            conv.weight.mul_(memory_scale)
+            conv.bias.mul_(memory_scale)
+    return out
+
+
+def _call_ms(fn, iters: int) -> float:
+    """Mean time of one eager call of ``fn`` over ``iters`` back-to-back
+    calls, by CUDA events: the host's launch overhead included."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph, replayed ``replays`` times and timed by CUDA events, so no
+    host launch overhead falls inside the window."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _probe(x, y, valid_hw):
+    """Overwrite the first pixels of slot 0 with ``border_coords``."""
+    import torch
+
+    xy = torch.as_tensor(border_coords(valid_hw), device=x.device)
+    x[0, : len(xy)] = xy[:, 0]
+    y[0, : len(xy)] = xy[:, 1]
+
+
+def touched_source_bytes(images, image_idx, xs, ys, valid_hw) -> int:
+    """Bytes of ``images`` that the four taps of the in-bounds pixels read,
+    each byte counted once: the least source traffic of one sample."""
+    import torch
+
+    from absolutetrack_tpu_torch.ops.warp_kernel import view_index
+
+    h, w = valid_hw
+    _, hp, wp = images.shape
+    x0, y0 = torch.floor(xs), torch.floor(ys)
+    inside = (xs >= 0) & (x0 + 1 <= w - 1) & (ys >= 0) & (y0 + 1 <= h - 1)
+    v = view_index(image_idx, images.shape[0])[:, None].expand_as(xs)
+    corner = ((v[inside] * hp + y0[inside].long()) * wp + x0[inside].long())
+    taps = torch.cat([corner, corner + 1, corner + wp, corner + wp + 1])
+    return int(torch.unique(taps).numel()) * images.element_size()
+
+
+def kernel_phase(ts: dict, crop_size) -> dict:
+    """K1 against its plain version on the card at the main path's shape
+    (N=4 slots x 96x96) and the 24-recording lockstep shape (N=96)."""
+    import torch
+    from torch.nn import functional as F
+
+    from absolutetrack_tpu_torch.geometry import camera as cam
+    from absolutetrack_tpu_torch.geometry.crop import crop_camera_to_camera
+    from absolutetrack_tpu_torch.ops import warp_kernel
+    from absolutetrack_tpu_torch.ops.resample import _crop_source_coords_planar
+    from absolutetrack_tpu_torch.tracker.crop_gen import gen_crop_slots
+
+    dev = ts["frames"].device
+    slots = gen_crop_slots(
+        ts["cameras"], ts["camera_angles"], ts["hand_model"],
+        ts["joint_angles"][0], ts["wrist_transforms"][0], ts["hand_confidences"][0],
+        crop_size,
+    )
+    idx = slots.view_idx.reshape(-1)
+    src = ts["cameras"].map(lambda a: a[idx])
+    crop = crop_camera_to_camera(slots.cameras.map(lambda a: a.reshape((4,) + a.shape[2:])), crop_size)
+    # slot 3: identity source and crop poses, so the crop's centre pixel
+    # lies exactly on the source's optical axis (r == 0)
+    eye = torch.eye(4, device=dev)
+    center = float(crop_size[0] // 2)
+    src = src._replace(T_world_from_eye=torch.stack([*src.T_world_from_eye[:3], eye]))
+    crop = crop._replace(
+        T_world_from_eye=torch.stack([*crop.T_world_from_eye[:3], eye]),
+        cx=torch.cat([crop.cx[:3], torch.tensor([center], device=dev)]),
+        cy=torch.cat([crop.cy[:3], torch.tensor([center], device=dev)]),
+    )
+    x4, y4 = _crop_source_coords_planar(src, crop, crop_size, cam.FISHEYE62, True)
+    axis_px = int(center) * crop_size[0] + int(center)
+    if not (torch.isfinite(x4).all() and torch.isfinite(y4).all()):
+        raise RuntimeError("coordinate planes are not finite (subnormal epsilon flushed?)")
+    if float(x4[3, axis_px]) != float(src.cx[3]) or float(y4[3, axis_px]) != float(src.cy[3]):
+        raise RuntimeError("the on-axis pixel does not map to the principal point")
+
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    reps = 24
+    jitter = lambda: (20 * torch.rand((reps * 4, 1), generator=gen) - 10).to(dev)  # noqa: E731
+    x96 = (x4.repeat(reps, 1) + jitter()).contiguous()
+    y96 = (y4.repeat(reps, 1) + jitter()).contiguous()
+    idx96 = idx.repeat(reps).contiguous()
+
+    padded_u8 = ts["frames"][0].contiguous()
+    unpadded_u8 = padded_u8[:, : SRC_HW[0], : SRC_HW[1]].contiguous()
+    sources = {
+        "uint8_padded": (padded_u8, SRC_HW),
+        "uint8_unpadded": (unpadded_u8, None),
+        "float32_padded": (padded_u8.float(), SRC_HW),
+        "float32_unpadded": (unpadded_u8.float(), None),
+        "bfloat16_padded": (padded_u8.to(torch.bfloat16), SRC_HW),
+    }
+    # out-of-range view indices: a negative one counts from the end once, then all clamp
+    idx_out = torch.tensor([-1, N_VIEWS, -N_VIEWS - 2, 2 * N_VIEWS + 1], device=dev)
+    max_err = 0.0
+    for name, (images, valid_hw) in sources.items():
+        for xs, ys, ii in ((x4, y4, idx), (x4, y4, idx_out), (x96, y96, idx96)):
+            xs, ys = xs.clone(), ys.clone()
+            _probe(xs, ys, valid_hw or tuple(images.shape[1:]))
+            got = warp_kernel.K1(images, ii, xs, ys, valid_hw)
+            want = warp_kernel.bilinear_sample_plain(images, ii, (xs, ys), valid_hw)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise RuntimeError(f"K1 {name}: non-finite output")
+            err = float((got - want).abs().max())
+            if err > K1_TOL:
+                raise RuntimeError(f"K1 {name} N={xs.shape[0]}: max |err| {err} > {K1_TOL}")
+            max_err = max(max_err, err)
+
+    def timings(xs, ys, ii):
+        images = padded_u8
+        n, p = xs.shape
+        h, w = SRC_HW
+        k1 = lambda: warp_kernel.K1(images, ii, xs, ys, SRC_HW)  # noqa: E731
+        plain = lambda: warp_kernel.bilinear_sample_plain(images, ii, (xs, ys), SRC_HW)  # noqa: E731
+        # yardstick only: grid_sample blends border taps with zeros, so it is
+        # not the same function at the border; the port never calls it
+        lib_in = images[ii, :h, :w].float()[:, None].contiguous()
+        grid = torch.stack([xs / (w - 1) * 2 - 1, ys / (h - 1) * 2 - 1], -1)[:, None].contiguous()
+        library = lambda: F.grid_sample(  # noqa: E731
+            lib_in, grid, mode="bilinear", padding_mode="zeros", align_corners=True
+        )
+        # what the function must move: the view index and both coordinate
+        # planes read once, the f32 output written once, and of the views
+        # only the bytes that this run's taps touch (the padding and the
+        # pixels outside every crop are never read); ~20 f32 operations a pixel
+        source = touched_source_bytes(images, ii, xs, ys, SRC_HW)
+        moved = source + ii.numel() * 8 + 3 * n * p * 4
+        flops = 20 * n * p
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS
+        return dict(
+            ms=_device_ms(k1, 100), plain_ms=_device_ms(plain, 20),
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=_device_ms(library, 100),
+            call_ms=_call_ms(k1, 200), plain_call_ms=_call_ms(plain, 50),
+            library_call_ms=_call_ms(library, 200),
+            bytes=moved, source_bytes=source, flops=flops,
+        )
+
+    return dict(max_abs_err=max_err, n4=timings(x4, y4, idx), n96=timings(x96, y96, idx96))
+
+
+def _run(tracker, ts, n_frames, feedback):
+    return tracker.track_sequence(
+        ts["frames"][:n_frames], ts["cameras"], ts["camera_to_world"][:n_frames],
+        ts["camera_angles"], ts["hand_model"], ts["joint_angles"][:n_frames],
+        ts["wrist_transforms"][:n_frames], ts["hand_confidences"][:n_frames],
+        feedback=feedback,
+    )
+
+
+def stage_breakdown(tracker, ts, n_frames: int) -> dict:
+    """Host-clock ms per frame of each stage of ``track_frame`` (crops from
+    the given poses), with the device synchronised between stages."""
+    import torch
+
+    sync = torch.cuda.synchronize
+    state = tracker.init_state()
+    skel = tracker.skeleton_inputs(ts["hand_model"])
+    total = dict(crop_slots=0.0, warp_and_inputs=0.0, network=0.0, finish=0.0)
+    for t in range(n_frames):
+        cams = ts["cameras"]._replace(T_world_from_eye=ts["camera_to_world"][t])
+        sync()
+        t0 = time.perf_counter()
+        slots = tracker.crop_slots(
+            cams, ts["camera_angles"], ts["hand_model"], ts["joint_angles"][t],
+            ts["wrist_transforms"][t], ts["hand_confidences"][t],
+        )
+        sync()
+        t1 = time.perf_counter()
+        frame = tracker.make_inputs(state, ts["frames"][t], cams, slots)
+        sync()
+        t2 = time.perf_counter()
+        new_temporal, out = tracker.model.regress_pose_use_skeleton(state.temporal, frame, skel)
+        sync()
+        t3 = time.perf_counter()
+        state, _ = tracker._finish(state, new_temporal, slots, out)
+        sync()
+        t4 = time.perf_counter()
+        for key, dt in zip(total, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            total[key] += dt
+    return {k: v / n_frames * 1e3 for k, v in total.items()}
+
+
+def device_busy(tracker, ts, n_frames: int) -> dict:
+    """Kernel time and kernel count a frame of the feedback run, summed
+    over a ``torch.profiler`` trace of ``n_frames`` frames on the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _run(tracker, ts, n_frames, True)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device activity")
+    return dict(
+        device_busy_ms_per_frame=sum(e.self_device_time_total for e in kernels) / n_frames / 1e3,
+        kernels_per_frame=sum(e.count for e in kernels) / n_frames,
+    )
+
+
+def path_phase(scene: dict, ts: dict, seed: int) -> dict:
+    """Track at full ``ModelConfig()`` width on the card: tracked-pose
+    feedback with K1's launches counted, then crops from given poses held
+    against the port's own CPU run."""
+    import torch
+
+    from absolutetrack_tpu_torch.models.config import ModelConfig
+    from absolutetrack_tpu_torch.models.layers import set_conv_precision
+    from absolutetrack_tpu_torch.models.umetrack import UmeTrackModel
+    from absolutetrack_tpu_torch.ops import warp_kernel
+    from absolutetrack_tpu_torch.tracker.tracker import HandTracker, TrackerConfig
+
+    set_conv_precision("highest")  # parity mode: no TF32 in convs or matmuls
+    cfg = ModelConfig()
+    opts = TrackerConfig(crop_size=cfg.input_size, src_valid_hw=SRC_HW)
+    model = UmeTrackModel(cfg, device="cuda", generator=torch.Generator().manual_seed(seed))
+    tracker = HandTracker(with_pose_prior(model, ts, opts.crop_size), opts)
+
+    _run(tracker, ts, 4, True)  # warm-up: cuDNN plans, the allocator
+    torch.cuda.synchronize()
+    warp_kernel.K1.launches = 0
+    t0 = time.perf_counter()
+    _, res = _run(tracker, ts, FEEDBACK_FRAMES, True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = warp_kernel.K1.launches
+    if launches != FEEDBACK_FRAMES:
+        raise RuntimeError(f"K1 launched {launches} times over {FEEDBACK_FRAMES} frames")
+    for name, value in res._asdict().items():
+        if value.is_floating_point() and not torch.isfinite(value).all():
+            raise RuntimeError(f"feedback run: non-finite {name}")
+    full = int((res.hand_valid.all(dim=1) & (res.num_views == 2).all(dim=1)).sum())
+    if full < 0.75 * FEEDBACK_FRAMES:
+        raise RuntimeError(f"both hands valid with 2 views on only {full}/{FEEDBACK_FRAMES} frames")
+    # the spread: the same run twice more, outside the counted one
+    repeats = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        _run(tracker, ts, FEEDBACK_FRAMES, True)
+        torch.cuda.synchronize()
+        repeats.append((time.perf_counter() - t0) / FEEDBACK_FRAMES * 1e3)
+    stages = stage_breakdown(tracker, ts, GIVEN_POSE_FRAMES)
+    busy = device_busy(tracker, ts, GIVEN_POSE_FRAMES)
+
+    # crops from the given poses: this device against the CPU (plain sampler)
+    net = damped(model)
+    _, r_dev = _run(HandTracker(net, opts), ts, GIVEN_POSE_FRAMES, False)
+    _, r_cpu = _run(HandTracker(copy.deepcopy(net).to("cpu"), opts), torch_scene(scene, "cpu"), GIVEN_POSE_FRAMES, False)
+    r_dev = type(r_dev)(*(v.cpu() for v in r_dev))
+    if not torch.equal(r_dev.hand_valid, r_cpu.hand_valid):
+        raise RuntimeError("hand validity differs between the card and the CPU")
+    valid = r_cpu.hand_valid
+    if not valid.any():
+        raise RuntimeError("no valid hand in the given-pose run")
+    lm_err = float((r_dev.tracked_keypoints - r_cpu.tracked_keypoints).norm(dim=-1)[valid].max())
+    ja_err = float((r_dev.joint_angles - r_cpu.joint_angles).abs()[valid].max())
+    if lm_err > LANDMARK_TOL_MM or ja_err > ANGLE_TOL:
+        raise RuntimeError(f"card vs CPU: landmarks {lm_err} mm, joint angles {ja_err}")
+    return dict(
+        frames=FEEDBACK_FRAMES,
+        ms_per_frame=wall / FEEDBACK_FRAMES * 1e3,
+        frames_per_s=FEEDBACK_FRAMES / wall,
+        ms_per_frame_repeats=repeats,
+        **busy,
+        k1_launches=launches,
+        frames_both_hands_2_views=full,
+        stage_ms_per_frame=stages,
+        given_pose_frames=GIVEN_POSE_FRAMES,
+        landmark_max_err_mm=lm_err,
+        joint_angle_max_err=ja_err,
+    )
+
+
+def main(seed: int = 0) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import absolutetrack_tpu_torch
+
+    # the port must come from this checkout, not from elsewhere on sys.path
+    port_root = Path(absolutetrack_tpu_torch.__file__).resolve().parents[1]
+    if port_root != Path(__file__).resolve().parent:
+        print(f"chip_smoke: the port was imported from {port_root}, not beside this script", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+
+    from absolutetrack_tpu_torch.models.config import ModelConfig
+    from absolutetrack_tpu_torch.ops import warp_kernel
+
+    t0 = time.perf_counter()
+    warp_kernel.K1.build()
+    print(f"K1 built in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    scene = build_scene(seed)
+    ts = torch_scene(scene, "cuda")
+    k = kernel_phase(ts, ModelConfig().input_size)
+    path = path_phase(scene, ts, seed)
+
+    n4, n96 = k["n4"], k["n96"]
+    print(json.dumps({"path": path, "card": smi}))
+    print(json.dumps({"kernels": [{
+        "name": "bilinear_sample",
+        "route": "cuda",
+        "source": "absolutetrack_tpu_torch/csrc/bilinear_sample.cu",
+        "replaces": "absolutetrack_tpu/ops/pallas_warp.py:224 (_fused_warp_kernel); "
+                    ":195 (_narrow_warp_kernel); :307 (_banded_warp_kernel); "
+                    ":322 (_covering_warp_kernel)",
+        "launches": path["k1_launches"],
+        "max_abs_err": k["max_abs_err"],
+        "tolerance": K1_TOL,
+        **n4,
+        "shape": "N=4 P=9216 uint8 512x640 (valid 480x636)",
+        "n96": n96,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
