@@ -2,19 +2,29 @@
 //
 // Replaces the Pallas kernels of absolutetrack_tpu/ops/pallas_warp.py:
 // _fused_warp_kernel (:224), _narrow_warp_kernel (:195),
-// _banded_warp_kernel (:307) and _covering_warp_kernel (:322). All four
-// compute one function -- the bilinear sample of (N, P) source coordinates
-// from (V, H, W) views, 0 where any tap falls outside the source -- and
-// differ only in how they tile the source into VMEM windows, because
-// Mosaic has no vector gather. Hopper gathers, so K1 has no tiling and no
-// placement planner: one thread per output pixel, one launch.
+// _overflow_warp_kernel (:281), _banded_warp_kernel (:307) and
+// _covering_warp_kernel (:322). All five compute one function -- the
+// bilinear sample of (N, P) source coordinates from (V, H, W) views, 0
+// where any tap falls outside the source -- and differ only in how they
+// tile the source into VMEM windows, because Mosaic has no vector gather.
+// The TPU runs the overflow kernel as a second pass over the few tiles
+// that miss pass A's window, merged per tile, on calls of >= 2048 tiles
+// (the 768-slot lockstep chunk), and cuts calls above 768 slots into
+// slabs to keep its scalar memory small. Hopper gathers, so K1 has no
+// window to overflow, no tiling and no planner: one thread per output
+// pixel, one launch for any N (the grid is (N * P + 255) / 256 blocks of
+// 256 threads with 64-bit pixel indices: 27,648 blocks at N = 768,
+// 36,864 at N = 1,024).
 //
-// What bounds it: bytes. The four uint8 views are 1.2 MB and sit in the
-// 50 MB L2; each output pixel moves 8 B of coordinates in and 4 B out. At
-// the main path's 4 x 9,216 pixels that is ~0.45 MB of coordinate and
-// output traffic, well under a microsecond at 3.35 TB/s, so one call is
-// launch-bound. Coordinate reads and output writes are coalesced; the
-// four taps are gathers that hit L2.
+// What bounds it: bytes. Each output pixel moves 8 B of coordinates in
+// and 4 B out; the taps are gathers from the views, which at the main
+// path's four uint8 views (1.2 MB) sit in the 50 MB L2. At the main
+// path's 4 x 9,216 pixels that is ~0.45 MB of coordinate and output
+// traffic, well under a microsecond at 3.35 TB/s, so one call is
+// launch-bound. At the 24-recording lockstep chunk (768 x 9,216 pixels)
+// the coordinates and output alone are ~85 MB and the 768 views 252 MB,
+// of which the taps touch only the crops' footprints: there the launch
+// is bound by bytes. Coordinate reads and output writes are coalesced.
 //
 // Arithmetic follows absolutetrack_tpu/ops/resample.py:36-76 line for
 // line: the in-bounds predicate of :60, the clamps of :61-62 and the tap

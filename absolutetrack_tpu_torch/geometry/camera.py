@@ -2,15 +2,17 @@
 
 Conventions as in the JAX package: ``v`` eye-space 3D, ``p = project(v)``,
 ``q = distort(p)``, window ``w = q * f + c``. Points are shaped
-``cam_batch + (N, 2|3)``. ``undistort`` and ``window_to_eye`` serve only
-the 2D-keypoint path and are not ported yet.
+``cam_batch + (N, 2|3)``; every function takes any camera batch shape
+(one rig ``(V,)``, or ``(R, V)`` for R recordings). ``undistort`` and
+``window_to_eye`` serve only the 2D-keypoint path and are not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from . import affine
@@ -46,6 +48,38 @@ class Camera(NamedTuple):
 
     def to(self, device) -> "Camera":
         return self.map(lambda x: x.to(device))
+
+
+def camera_from_json(js: dict, T_world_from_eye: Optional[np.ndarray] = None):
+    """One camera dict of the reference's JSON schema -> ``(Camera, kind)``
+    on the CPU (keys ImageSizeX/Y, fx, fy, cx, cy, DistortionModel, k1..k6,
+    p1, p2; ``absolutetrack_tpu/geometry/camera.py:78-110``)."""
+    js = js.get("Camera", js)
+    model = js["DistortionModel"]
+    if model == "PinholePlane":
+        kind = PINHOLE
+        coeffs = np.zeros(8, np.float32)
+    elif model == "FishEye62":
+        kind = FISHEYE62
+        coeffs = [js[k] for k in ("k1", "k2", "k3", "k4", "p1", "p2", "k5", "k6")]
+    else:
+        raise ValueError(f"Unknown DistortionModel {model!r}")
+    if T_world_from_eye is None:
+        T_world_from_eye = np.eye(4)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32))
+
+    return Camera(
+        fx=f32(js["fx"]), fy=f32(js["fy"]), cx=f32(js["cx"]), cy=f32(js["cy"]),
+        coeffs=f32(coeffs), T_world_from_eye=f32(T_world_from_eye),
+        width=f32(js["ImageSizeX"]), height=f32(js["ImageSizeY"]),
+    ), kind
+
+
+def stack_cameras(cams: List[Camera]) -> Camera:
+    """Stack same-kind cameras along a new leading batch axis."""
+    return Camera(*(torch.stack(x) for x in zip(*cams)))
 
 
 def project(v: torch.Tensor, kind: str, eps: float = 2.0**-128) -> torch.Tensor:

@@ -17,7 +17,7 @@ Field shapes as in the JAX package::
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -76,6 +76,14 @@ def hand_model_from_dict(d: dict, device=None) -> HandModel:
             dtype = torch.int64 if field in _INT_FIELDS else torch.float32
             kwargs[field] = torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
     return HandModel(**kwargs)
+
+
+def stack_hand_models(hands: List[HandModel]) -> HandModel:
+    """Stack hand models along a new leading batch axis (one per recording),
+    as ``jax.tree.map(jnp.stack, *hands)`` does."""
+    return HandModel(
+        *(None if xs[0] is None else torch.stack(xs) for xs in zip(*hands))
+    )
 
 
 def scaled_hand_model(hand: HandModel, multiplier) -> HandModel:

@@ -1,11 +1,13 @@
 """K1: the bilinear crop sampler, a CUDA kernel for Hopper, and its plain version.
 
 Port of ``absolutetrack_tpu/ops/pallas_warp.py``. The Pallas module tiles
-the source into VMEM windows (pass A, narrow, banded and covering
-kernels, with placement planners and slot slabbing) because Mosaic has
-no vector gather; those are TPU mechanics, not behaviour. On Hopper one
-gathering kernel, ``csrc/bilinear_sample.cu``, computes the same function
-for every coordinate pattern. Its source note says what bounds it.
+the source into VMEM windows (pass A, the overflow pass B and its
+per-tile merge, narrow, banded and covering kernels, with placement
+planners and slot slabbing) because Mosaic has no vector gather; those
+are TPU mechanics, not behaviour. On Hopper one gathering kernel,
+``csrc/bilinear_sample.cu``, computes the same function for every
+coordinate pattern and every slot count in one launch. Its source note
+says what bounds it.
 
 ``bilinear_sample`` dispatches on the device of its tensors: a CUDA tensor
 launches K1 (or raises), a CPU tensor takes ``bilinear_sample_plain``. The
@@ -21,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from collections import Counter
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -101,11 +104,17 @@ def nvcc_command(source: Path, output: Path) -> list:
 
 
 class K1Kernel:
-    """The built library, loaded once, and the count of launches."""
+    """The built library, loaded once, the count of launches and the
+    count of launches by (N, P) shape."""
 
     def __init__(self):
         self.launches = 0
+        self.shapes = Counter()
         self._fn = None
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.shapes.clear()
 
     @staticmethod
     def library_path() -> Path:
@@ -166,6 +175,7 @@ class K1Kernel:
         if err != 0:
             raise RuntimeError(f"K1 bilinear_sample launch failed: cudaError {err}")
         self.launches += 1
+        self.shapes[(n, p)] += 1
         return out
 
 

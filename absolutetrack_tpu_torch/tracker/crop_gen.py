@@ -1,9 +1,13 @@
 """Crop-camera generation from hand poses (port of ``absolutetrack_tpu/tracker/crop_gen.py``).
 
-One batched function over fixed (NUM_HANDS x MAX_VIEWS) slots: FK of up to
-three poses per hand gives the crop bounding points; per-camera visibility
+One function over fixed (NUM_HANDS x MAX_VIEWS) slots: FK of up to three
+poses per hand gives the crop bounding points; per-camera visibility
 counts pick the two lowest-indexed eligible cameras; a look-at crop camera
-is built per slot. ``gen_crop_slots_from_2d`` waits for the 2D path.
+is built per slot. It takes one frame (cameras ``(V,)``, an unbatched hand
+model) or any leading batch ``B...`` of samples, each with its own cameras
+and hand model: the batch is a tensor axis, not a loop, and stands in for
+``jax.vmap(gen_crop_slots)`` (``tracker/batched.py:65-87``).
+``gen_crop_slots_from_2d`` waits for the 2D path.
 """
 
 from __future__ import annotations
@@ -22,12 +26,13 @@ MAX_VIEWS = 2  # reference tracker.py:37
 
 
 class CropSlots(NamedTuple):
-    """Fixed-capacity crop assignment for one frame.
+    """Fixed-capacity crop assignment for one frame (or ``B...`` samples,
+    which lead every shape).
 
-    view_idx   : (NUM_HANDS, MAX_VIEWS) int64 source-camera index per slot
-    view_valid : (NUM_HANDS, MAX_VIEWS) bool
-    hand_valid : (NUM_HANDS,) bool
-    cameras    : CropCamera with batch shape (NUM_HANDS, MAX_VIEWS)
+    view_idx   : (B..., NUM_HANDS, MAX_VIEWS) int64 source-camera index per slot
+    view_valid : (B..., NUM_HANDS, MAX_VIEWS) bool
+    hand_valid : (B..., NUM_HANDS) bool
+    cameras    : CropCamera with batch shape (B..., NUM_HANDS, MAX_VIEWS)
     """
 
     view_idx: torch.Tensor
@@ -37,34 +42,39 @@ class CropSlots(NamedTuple):
 
 
 def _crop_points(hand: HandModel, joint_angles, wrist, num_crop_points: int):
-    """(H, num_crop_points, 3) bounding points: the actual, neutral and open
-    poses through one batched FK call, pose-major per hand."""
+    """(B..., H, num_crop_points, 3) bounding points: the actual, neutral and
+    open poses through one batched FK call, pose-major per hand."""
     if num_crop_points not in (21, 42, 63):
         raise ValueError(f"num_crop_points must be 21, 42 or 63, got {num_crop_points}")
-    h = joint_angles.shape[0]
+    lead, h = joint_angles.shape[:-2], joint_angles.shape[-2]
+    nb = len(lead)
     n_poses = num_crop_points // 21
 
     poses = [joint_angles]
     if n_poses > 1:
-        poses.append(neutral_joint_angles(hand).expand(h, 22))
+        poses.append(neutral_joint_angles(hand)[..., None, :].expand(joint_angles.shape))
     if n_poses > 2:
         poses.append(torch.zeros_like(joint_angles))
 
-    angles_b = torch.cat(poses, dim=0)
-    wrist_b = wrist.repeat(n_poses, 1, 1)
-    hand_idx_b = torch.arange(h, device=wrist.device).repeat(n_poses)
-    hand_b = hand.map(lambda x: x.expand((n_poses * h,) + x.shape))
+    angles_b = torch.stack(poses, dim=nb)  # (B..., n_poses, H, 22)
+    wrist_b = wrist.unsqueeze(nb).expand(lead + (n_poses,) + wrist.shape[nb:])
+    hand_idx_b = torch.arange(h, device=wrist.device).expand(n_poses, h)
+    hand_b = hand.map(
+        lambda x: x.reshape(lead + (1, 1) + x.shape[nb:]).expand(lead + (n_poses, h) + x.shape[nb:])
+    )
     pts = landmarks_from_hand_pose(hand_b, angles_b, wrist_b, hand_idx_b)
-    return pts.reshape(n_poses, h, 21, 3).movedim(0, 1).reshape(h, -1, 3)
+    return pts.movedim(nb, nb + 1).reshape(lead + (h, n_poses * 21, 3))
 
 
 def _visibility_counts(cameras: cam.Camera, landmarks_world, src_kind: str):
-    """(H, V) count of landmarks inside each camera's window with z > 0."""
-    lm = landmarks_world[:, None]
-    eye = cam.world_to_eye(cameras, lm)
-    win = cam.eye_to_window(cameras, eye, src_kind)
-    w = cameras.width[:, None]
-    h = cameras.height[:, None]
+    """(B..., H, V) count of landmarks inside each camera's window with z > 0;
+    cameras (B..., V), landmarks (B..., H, 21, 3)."""
+    nb = landmarks_world.dim() - 3
+    cams = cameras.map(lambda x: x.unsqueeze(nb))  # (B..., 1, V): broadcast over hands
+    eye = cam.world_to_eye(cams, landmarks_world.unsqueeze(-3))
+    win = cam.eye_to_window(cams, eye, src_kind)
+    w = cams.width[..., None]
+    h = cams.height[..., None]
     vis = (
         (win[..., 0] >= 0)
         & (win[..., 0] <= w - 1)
@@ -76,18 +86,19 @@ def _visibility_counts(cameras: cam.Camera, landmarks_world, src_kind: str):
 
 
 def _top2(score: torch.Tensor):
-    """Top-2 along the last axis, ties to the lower index (as ``lax.top_k``)."""
+    """Top-2 along the last axis, ties to the lower index (as ``lax.top_k``);
+    the stable sort keeps that rule in every row of a batch."""
     vals, idx = torch.sort(score, dim=-1, descending=True, stable=True)
     return vals[..., :MAX_VIEWS], idx[..., :MAX_VIEWS]
 
 
 def gen_crop_slots(
-    cameras: cam.Camera,  # batch (V,) source cameras with frame extrinsics
-    camera_angles: torch.Tensor,  # (V,)
-    hand: HandModel,  # unbatched, millimeters
-    joint_angles: torch.Tensor,  # (NUM_HANDS, 22)
-    wrist_transforms: torch.Tensor,  # (NUM_HANDS, 4, 4) world, millimeters
-    hand_confidences: torch.Tensor,  # (NUM_HANDS,)
+    cameras: cam.Camera,  # batch (B..., V) source cameras with frame extrinsics
+    camera_angles: torch.Tensor,  # (B..., V)
+    hand: HandModel,  # fields (B..., ...), millimeters; unbatched for one frame
+    joint_angles: torch.Tensor,  # (B..., NUM_HANDS, 22)
+    wrist_transforms: torch.Tensor,  # (B..., NUM_HANDS, 4, 4) world, millimeters
+    hand_confidences: torch.Tensor,  # (B..., NUM_HANDS)
     crop_size: Tuple[int, int],
     num_crop_points: int = 63,
     min_num_crops: int = 1,
@@ -98,12 +109,13 @@ def gen_crop_slots(
     sort_camera_index: bool = True,
 ) -> CropSlots:
     """Batched equivalent of the reference HandTracker.gen_crop_cameras."""
-    n_hands = joint_angles.shape[0]
+    lead, n_hands = joint_angles.shape[:-2], joint_angles.shape[-2]
+    nb = len(lead)
     device = joint_angles.device
     hand_idx = torch.arange(n_hands, device=device)
 
     pts = _crop_points(hand, joint_angles, wrist_transforms, num_crop_points)
-    counts = _visibility_counts(cameras, pts[:, :21], src_kind)
+    counts = _visibility_counts(cameras, pts[..., :21, :], src_kind)
     eligible = counts >= min_required_vis_landmarks
 
     n_cams = counts.shape[-1]
@@ -120,21 +132,24 @@ def gen_crop_slots(
     confident = hand_confidences >= CONFIDENCE_THRESHOLD
     n_eligible = torch.sum(slot_valid, dim=-1)
     hand_valid = confident & (n_eligible >= min_num_crops)
-    view_valid = slot_valid & confident[:, None] & hand_valid[:, None]
+    view_valid = slot_valid & confident[..., None] & hand_valid[..., None]
 
-    flat_idx = view_idx.reshape(-1)
-    w2e = affine.rigid_inverse(cameras.T_world_from_eye)[flat_idx].reshape(
-        n_hands, MAX_VIEWS, 4, 4
+    # each sample's slots gather from that sample's own cameras
+    flat_idx = view_idx.reshape(lead + (n_hands * MAX_VIEWS,))
+    w2e = torch.take_along_dim(
+        affine.rigid_inverse(cameras.T_world_from_eye), flat_idx[..., None, None], dim=nb
+    ).reshape(lead + (n_hands, MAX_VIEWS, 4, 4))
+    angles = torch.take_along_dim(camera_angles, flat_idx, dim=nb).reshape(
+        lead + (n_hands, MAX_VIEWS)
     )
-    angles = camera_angles[flat_idx].reshape(n_hands, MAX_VIEWS)
 
     if mirror_right_hand:
-        mirror = (hand_idx == hm.RIGHT_HAND_INDEX)[:, None].expand(n_hands, MAX_VIEWS)
+        mirror = (hand_idx == hm.RIGHT_HAND_INDEX)[:, None].expand(lead + (n_hands, MAX_VIEWS))
     else:
-        mirror = torch.zeros((n_hands, MAX_VIEWS), dtype=torch.bool, device=device)
+        mirror = torch.zeros(lead + (n_hands, MAX_VIEWS), dtype=torch.bool, device=device)
     crop_cams = crop.gen_crop_camera(
         w2e,
-        pts[:, None].expand((n_hands, MAX_VIEWS) + pts.shape[1:]),
+        pts.unsqueeze(-3).expand(lead + (n_hands, MAX_VIEWS) + pts.shape[-2:]),
         crop_size,
         mirror,
         camera_angle_deg=angles,
@@ -144,9 +159,9 @@ def gen_crop_slots(
     # slot 0 stays the anchor view: a hand whose slot-0 crop failed is
     # dropped this frame (the reference would raise there)
     hand_valid = (
-        hand_valid & view_valid[:, 0] & (torch.sum(view_valid, dim=-1) >= min_num_crops)
+        hand_valid & view_valid[..., 0] & (torch.sum(view_valid, dim=-1) >= min_num_crops)
     )
-    view_valid = view_valid & hand_valid[:, None]
+    view_valid = view_valid & hand_valid[..., None]
 
     return CropSlots(
         view_idx=view_idx,

@@ -4,9 +4,9 @@
 (kernel K1 on the card), the network and unit conversions for one frame;
 ``track_sequence`` runs it frame by frame, carrying the state, with the
 semantics of ``absolutetrack_tpu.apps.eval_lib.track_recording(
-pipelined=False)``. World geometry is in mm; network extrinsics and
-skeletons are in meters. The calibrate-scale and 2D-keypoint steps wait
-for later slices.
+pipelined=False)``; ``track_frame_and_calibrate_scale`` is the
+unknown-skeleton step. World geometry is in mm; network extrinsics and
+skeletons are in meters. The 2D-keypoint step waits for a later slice.
 """
 
 from __future__ import annotations
@@ -225,6 +225,29 @@ class HandTracker:
         new_temporal, out = self.model.regress_pose_use_skeleton(
             state.temporal, frame, self.skeleton_inputs(hand_model_mm)
         )
+        return self._finish(state, new_temporal, slots, out)
+
+    @torch.no_grad()
+    def track_frame_and_calibrate_scale(
+        self,
+        state: TrackerState,
+        images: torch.Tensor,
+        cameras: cam.Camera,
+        camera_angles: torch.Tensor,
+        hand_model_mm: HandModel,
+        prev_joint_angles: torch.Tensor,
+        prev_wrist_mm: torch.Tensor,
+        hand_confidences: torch.Tensor,
+        src_kind: str = cam.FISHEYE62,
+    ) -> Tuple[TrackerState, TrackFrameResult]:
+        """Unknown-skeleton step: predicts a per-hand skeleton scale; crops
+        need two views (reference tracker.py:235-271)."""
+        slots = self.crop_slots(
+            cameras, camera_angles, hand_model_mm, prev_joint_angles,
+            prev_wrist_mm, hand_confidences, 2, src_kind,
+        )
+        frame = self.make_inputs(state, images, cameras, slots, src_kind)
+        new_temporal, out = self.model.regress_pose_pred_skel_scale(state.temporal, frame)
         return self._finish(state, new_temporal, slots, out)
 
     @torch.no_grad()

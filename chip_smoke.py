@@ -4,18 +4,28 @@
 
 Builds kernel K1 (``absolutetrack_tpu_torch/csrc/bilinear_sample.cu``)
 with nvcc and holds it against its plain PyTorch version on the card at
-the main path's shape (4 slots x 96x96) and at the 24-recording lockstep
-shape (96 slots), timing each by CUDA-graph replay (device time) and by
-eager calls. Then it tracks a synthetic scene at full ``ModelConfig()``
-width with TF32 off: 32 frames with the tracked pose fed back into the
-next frame's crops (K1's launches counted from 0: one a frame), twice
-more for the spread, a synchronised stage breakdown, a ``torch.profiler``
-trace for the device's busy time, and 8 frames with crops from given
-poses, compared with the port's own CPU run. Prints the card's name and power
-limit first, one ``{"path": ...}`` line, one ``{"kernels": [...]}`` line
-and, last, ``{"ok": true, "device": ...}``. Any failed check raises;
-without a CUDA device, or without the port beside it, it exits non-zero
-and prints no result.
+the sequential path's shape (4 slots x 96x96) and at the non-pipelined
+lockstep frame's (24 recordings x 4 slots, 96 slots), timing each by
+CUDA-graph replay (device time) and by eager calls. Then it drives two
+paths at full ``ModelConfig()`` width with TF32 off, K1's launches counted
+from 0 just before each:
+
+* sequential (``HandTracker.track_sequence``): 32 frames of a synthetic
+  scene with the tracked pose fed back into the next frame's crops (one
+  K1 launch a frame), twice more for the spread, a synchronised stage
+  breakdown, a ``torch.profiler`` trace for the device's busy time, and 8
+  frames with crops from given poses compared with the port's CPU run;
+* lockstep (``eval_lib.track_recordings_batched(pipelined=True)``): 24
+  recordings of 16 frames in chunks of 8 (one K1 launch of 768 slots a
+  chunk), twice more for the spread, stages, a one-chunk trace, K1 at
+  the chunk's own coordinates against its plain version, and the results
+  against the sequential tracker and against the port's CPU run.
+
+Prints the card's name and power limit first, one ``{"path": ...}``, one
+``{"lockstep": ...}`` and one ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": ...}``. Any failed check raises; without a CUDA
+device, or without the port beside it, it exits non-zero and prints no
+result.
 
 ``build_scene`` is importable (numpy only) so the tests reuse the scene.
 """
@@ -37,6 +47,12 @@ SRC_HW = (480, 636)  # the sensor
 PAD_HW = (512, 640)  # frames upload zero-padded to this
 FEEDBACK_FRAMES = 32
 GIVEN_POSE_FRAMES = 8
+LOCKSTEP_RECORDINGS = 24  # bench.py's lockstep workload
+LOCKSTEP_FRAMES = 16  # per recording: two chunks
+LOCKSTEP_CHUNK = 8
+LOCKSTEP_SLOTS = LOCKSTEP_RECORDINGS * LOCKSTEP_CHUNK * 2 * 2  # hands x views: 768
+SEQUENTIAL_CHECKED = (0, 11, 23)  # recordings held against the sequential tracker
+CPU_CHECKED = 2  # recordings of the card-against-CPU run, LOCKSTEP_CHUNK frames each
 K1_TOL = 1e-3  # 0..255 scale; K1 rounds every product and sum as the plain version does
 LANDMARK_TOL_MM = 0.5
 ANGLE_TOL = 1e-3
@@ -163,6 +179,43 @@ def build_scene(seed: int = 0, n_frames: int = FEEDBACK_FRAMES) -> dict:
         hand_confidences=np.ones((n_frames, 2), np.float32),
         frames=rng.integers(0, 256, (n_frames, N_VIEWS, h, w), dtype=np.uint8),
     )
+
+
+def labels_json(scene: dict, start: int = 0, length=None) -> dict:
+    """Frames [start, start + length) of the scene as a label dict of the
+    reference's JSON schema (``tracker/video_data.py::load_labels``)."""
+    c = scene["cameras"]
+    coeff_names = ("k1", "k2", "k3", "k4", "p1", "p2", "k5", "k6")
+    cameras = [
+        {
+            "DistortionModel": "FishEye62",
+            "ImageSizeX": int(c["width"][v]), "ImageSizeY": int(c["height"][v]),
+            **{k: float(c[k][v]) for k in ("fx", "fy", "cx", "cy")},
+            **dict(zip(coeff_names, map(float, c["coeffs"][v]))),
+        }
+        for v in range(N_VIEWS)
+    ]
+    sl = slice(start, None if length is None else start + length)
+    return {
+        "cameras": cameras,
+        "camera_angles": scene["camera_angles"].tolist(),
+        "camera_to_world_transforms": scene["camera_to_world"][sl].tolist(),
+        "hand_model": {k: np.asarray(v).tolist() for k, v in scene["hand_model"].items()},
+        "joint_angles": scene["joint_angles"][sl].tolist(),
+        "wrist_transforms": scene["wrist_transforms"][sl].tolist(),
+        "hand_confidences": scene["hand_confidences"][sl].tolist(),
+    }
+
+
+def scene_recordings(scene: dict, starts, length: int) -> list:
+    """(labels, frames) pairs for the port's eval drivers: one recording of
+    ``length`` frames from each start offset, frames as (V, 480, 636) uint8."""
+    from absolutetrack_tpu_torch.tracker.video_data import labels_from_json
+
+    return [
+        (labels_from_json(labels_json(scene, s, length)), list(scene["frames"][s : s + length]))
+        for s in starts
+    ]
 
 
 def pad_frames(frames: np.ndarray, pad_hw=PAD_HW) -> np.ndarray:
@@ -368,10 +421,10 @@ def touched_source_bytes(images, image_idx, xs, ys, valid_hw) -> int:
 
 
 def kernel_phase(ts: dict, crop_size) -> dict:
-    """K1 against its plain version on the card at the main path's shape
-    (N=4 slots x 96x96) and the 24-recording lockstep shape (N=96)."""
+    """K1 against its plain version on the card at the sequential path's
+    shape (N=4 slots x 96x96) and at the non-pipelined lockstep frame's
+    (24 recordings x 4 slots, N=96)."""
     import torch
-    from torch.nn import functional as F
 
     from absolutetrack_tpu_torch.geometry import camera as cam
     from absolutetrack_tpu_torch.geometry.crop import crop_camera_to_camera
@@ -438,38 +491,53 @@ def kernel_phase(ts: dict, crop_size) -> dict:
                 raise RuntimeError(f"K1 {name} N={xs.shape[0]}: max |err| {err} > {K1_TOL}")
             max_err = max(max_err, err)
 
-    def timings(xs, ys, ii):
-        images = padded_u8
-        n, p = xs.shape
-        h, w = SRC_HW
-        k1 = lambda: warp_kernel.K1(images, ii, xs, ys, SRC_HW)  # noqa: E731
-        plain = lambda: warp_kernel.bilinear_sample_plain(images, ii, (xs, ys), SRC_HW)  # noqa: E731
-        # yardstick only: grid_sample blends border taps with zeros, so it is
-        # not the same function at the border; the port never calls it
-        lib_in = images[ii, :h, :w].float()[:, None].contiguous()
-        grid = torch.stack([xs / (w - 1) * 2 - 1, ys / (h - 1) * 2 - 1], -1)[:, None].contiguous()
-        library = lambda: F.grid_sample(  # noqa: E731
-            lib_in, grid, mode="bilinear", padding_mode="zeros", align_corners=True
-        )
-        # what the function must move: the view index and both coordinate
-        # planes read once, the f32 output written once, and of the views
-        # only the bytes that this run's taps touch (the padding and the
-        # pixels outside every crop are never read); ~20 f32 operations a pixel
-        source = touched_source_bytes(images, ii, xs, ys, SRC_HW)
-        moved = source + ii.numel() * 8 + 3 * n * p * 4
-        flops = 20 * n * p
-        t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS
-        return dict(
-            ms=_device_ms(k1, 100), plain_ms=_device_ms(plain, 20),
-            bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=_device_ms(library, 100),
-            call_ms=_call_ms(k1, 200), plain_call_ms=_call_ms(plain, 50),
-            library_call_ms=_call_ms(library, 200),
-            bytes=moved, source_bytes=source, flops=flops,
-        )
+    return dict(
+        max_abs_err=max_err,
+        n4=k1_timings(padded_u8, idx, x4, y4),
+        n96=k1_timings(padded_u8, idx96, x96, y96),
+    )
 
-    return dict(max_abs_err=max_err, n4=timings(x4, y4, idx), n96=timings(x96, y96, idx96))
+
+def k1_timings(images, ii, xs, ys, iters: int = 100) -> dict:
+    """K1's device time at one shape (CUDA-graph replay), beside its bound,
+    its plain version's time and ``grid_sample``'s, and the eager calls'."""
+    import torch
+    from torch.nn import functional as F
+
+    from absolutetrack_tpu_torch.ops import warp_kernel
+
+    n, p = xs.shape
+    h, w = SRC_HW
+    k1 = lambda: warp_kernel.K1(images, ii, xs, ys, SRC_HW)  # noqa: E731
+    plain = lambda: warp_kernel.bilinear_sample_plain(images, ii, (xs, ys), SRC_HW)  # noqa: E731
+    # yardstick only: grid_sample blends border taps with zeros, so it is
+    # not the same function at the border; the port never calls it
+    lib_in = images[ii, :h, :w].float()[:, None].contiguous()
+    grid = torch.stack([xs / (w - 1) * 2 - 1, ys / (h - 1) * 2 - 1], -1)[:, None].contiguous()
+    library = lambda: F.grid_sample(  # noqa: E731
+        lib_in, grid, mode="bilinear", padding_mode="zeros", align_corners=True
+    )
+    # what the function must move: the view index and both coordinate
+    # planes read once, the f32 output written once, and of the views
+    # only the bytes that this run's taps touch (the padding and the
+    # pixels outside every crop are never read); ~20 f32 operations a pixel
+    source = touched_source_bytes(images, ii, xs, ys, SRC_HW)
+    moved = source + ii.numel() * 8 + 3 * n * p * 4
+    flops = 20 * n * p
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS
+    few = max(iters // 5, 2)
+    out = dict(
+        ms=_device_ms(k1, iters), plain_ms=_device_ms(plain, few),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=_device_ms(library, iters),
+        call_ms=_call_ms(k1, 2 * iters), plain_call_ms=_call_ms(plain, few),
+        library_call_ms=_call_ms(library, 2 * iters),
+        bytes=moved, source_bytes=source, flops=flops,
+    )
+    del lib_in, grid
+    torch.cuda.empty_cache()
+    return out
 
 
 def _run(tracker, ts, n_frames, feedback):
@@ -553,7 +621,7 @@ def path_phase(scene: dict, ts: dict, seed: int) -> dict:
 
     _run(tracker, ts, 4, True)  # warm-up: cuDNN plans, the allocator
     torch.cuda.synchronize()
-    warp_kernel.K1.launches = 0
+    warp_kernel.K1.reset_counts()
     t0 = time.perf_counter()
     _, res = _run(tracker, ts, FEEDBACK_FRAMES, True)
     torch.cuda.synchronize()
@@ -606,6 +674,193 @@ def path_phase(scene: dict, ts: dict, seed: int) -> dict:
     )
 
 
+class _RecordCalls:
+    """Stands in for K1 and records each call's arguments."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.kernel(*args)
+
+
+def _stage_ms(run, n_chunks: int) -> dict:
+    """Host-clock ms per chunk of each stage of the lockstep, the device
+    synchronised at every stage's end (``stage_hook``); ``readback`` is the
+    copy of every chunk's results to the host after the last chunk."""
+    import torch
+
+    total = {}
+    last = [0.0]
+
+    def hook(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        total[name] = total.get(name, 0.0) + now - last[0]
+        last[0] = now
+
+    torch.cuda.synchronize()
+    last[0] = time.perf_counter()
+    run(stage_hook=hook)
+    total["readback"] = time.perf_counter() - last[0]
+    return {k: v / n_chunks * 1e3 for k, v in total.items()}
+
+
+def _chunk_trace(run) -> dict:
+    """Device time of one chunk by ``torch.profiler``: the sum of every
+    device activity, K1's share and the five largest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(max_frames=LOCKSTEP_CHUNK)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("the profiler recorded no device activity")
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return dict(
+        device_busy_ms=sum(e.self_device_time_total for e in events) / 1e3,
+        device_activities=sum(e.count for e in events),
+        k1_ms=sum(e.self_device_time_total for e in events if "bilinear_sample" in e.key) / 1e3,
+        top=[(e.key[:90], e.count, e.self_device_time_total / 1e3) for e in events[:5]],
+    )
+
+
+def _result_errors(a, b) -> tuple:
+    """(landmark mm, joint angle rad) between two SequenceResults, where valid."""
+    if not np.array_equal(a.valid_tracking, b.valid_tracking):
+        raise RuntimeError("hand validity differs")
+    v = a.valid_tracking
+    if not v.any():
+        raise RuntimeError("no valid hand to compare")
+    lm = float(np.linalg.norm(a.tracked_keypoints - b.tracked_keypoints, axis=-1)[v].max())
+    ja = float(np.abs(a.joint_angles - b.joint_angles)[v].max())
+    return lm, ja
+
+
+def lockstep_phase(seed: int) -> dict:
+    """The pipelined lockstep eval at full ``ModelConfig()`` width with TF32
+    off: 24 recordings of 16 frames (each from its own start frame of one
+    scene) through ``eval_lib.track_recordings_batched(pipelined=True,
+    chunk_size=8)``, two chunks of 768 crop slots, K1 once a chunk; its
+    spread, stages and device time; K1 at the chunk's own coordinates
+    against its plain version (and at 1,024 slots, where the TPU cuts
+    slabs); and the results against the port's sequential tracker on the
+    card and against the port's CPU run."""
+    import torch
+
+    from absolutetrack_tpu_torch.apps import eval_lib
+    from absolutetrack_tpu_torch.models.config import ModelConfig
+    from absolutetrack_tpu_torch.models.layers import set_conv_precision
+    from absolutetrack_tpu_torch.models.umetrack import UmeTrackModel
+    from absolutetrack_tpu_torch.ops import warp_kernel
+
+    set_conv_precision("highest")
+    r, n, chunk = LOCKSTEP_RECORDINGS, LOCKSTEP_FRAMES, LOCKSTEP_CHUNK
+    n_chunks = n // chunk
+    scene = build_scene(seed + 1, n_frames=n + r - 1)
+    recordings = scene_recordings(scene, range(r), n)
+    cfg = ModelConfig()
+    net = damped(UmeTrackModel(cfg, device="cuda", generator=torch.Generator().manual_seed(seed)))
+
+    def run(recs=recordings, model=net, **kw):
+        return eval_lib.track_recordings_batched(model, recs, chunk_size=chunk, pipelined=True, **kw)
+
+    run(max_frames=chunk)  # warm-up: cuDNN plans, the allocator
+    torch.cuda.synchronize()
+    warp_kernel.K1.reset_counts()
+    t0 = time.perf_counter()
+    results = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shapes = warp_kernel.K1.launches, dict(warp_kernel.K1.shapes)
+    p = cfg.input_size[0] * cfg.input_size[1]
+    if launches != n_chunks or shapes != {(LOCKSTEP_SLOTS, p): n_chunks}:
+        raise RuntimeError(f"K1 launches {launches} by shape {shapes}; want {n_chunks} at N={LOCKSTEP_SLOTS}")
+    for res in results:
+        for name, value in vars(res).items():
+            if value is not None and not np.isfinite(value).all():
+                raise RuntimeError(f"lockstep: non-finite {name}")
+        if res.tracked_keypoints.shape != (2, n, 21, 3) or not res.valid_tracking.all():
+            raise RuntimeError("lockstep: wrong shape, or a hand lost on a clean scene")
+    repeats = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        repeats.append(r * n / (time.perf_counter() - t1))
+    stages = _stage_ms(run, n_chunks)
+    trace = _chunk_trace(run)
+
+    # K1 at the chunk's own coordinates: one chunk with K1's calls recorded
+    recorder = _RecordCalls(warp_kernel.K1)
+    warp_kernel.K1 = recorder
+    try:
+        run(max_frames=chunk)
+    finally:
+        warp_kernel.K1 = recorder.kernel
+    images, ii, xs, ys, valid_hw = recorder.calls[0]
+    del recorder
+    errs = {}
+    for name, (idx, x, y) in {
+        "n768": (ii, xs, ys),
+        # 1,024 slots (32 recordings), where the TPU cuts the call into slabs
+        "n1024": tuple(torch.cat([a, a[:256]]).contiguous() for a in (ii, xs, ys)),
+    }.items():
+        got = warp_kernel.K1(images, idx, x, y, valid_hw)
+        want = warp_kernel.bilinear_sample_plain(images, idx, (x, y), valid_hw)
+        torch.cuda.synchronize()
+        errs[name] = float((got - want).abs().max())
+        if not torch.isfinite(got).all() or errs[name] > K1_TOL:
+            raise RuntimeError(f"K1 at {name}: max |err| {errs[name]} > {K1_TOL}")
+    k1 = dict(k1_timings(images, ii, xs, ys, iters=20), max_abs_err=errs["n768"], n1024_max_abs_err=errs["n1024"])
+    del images, ii, xs, ys
+    torch.cuda.empty_cache()
+
+    # each checked recording alone through the sequential per-frame tracker
+    seq = {}
+    for i in SEQUENTIAL_CHECKED:
+        labels, frames = recordings[i]
+        alone = eval_lib.track_recording(net, labels, frames, chunk_size=chunk, pipelined=False)
+        seq[i] = _result_errors(alone, results[i])
+    seq_lm, seq_ja = max(e[0] for e in seq.values()), max(e[1] for e in seq.values())
+    if seq_lm > LANDMARK_TOL_MM or seq_ja > ANGLE_TOL:
+        raise RuntimeError(f"lockstep vs sequential: landmarks {seq_lm} mm, joint angles {seq_ja}")
+
+    # the card against the port's CPU run, CPU_CHECKED recordings of one chunk
+    few = recordings[:CPU_CHECKED]
+    card = run(few, max_frames=chunk)
+    cpu = run(few, model=copy.deepcopy(net).to("cpu"), max_frames=chunk)
+    cpu_errs = [_result_errors(a, b) for a, b in zip(card, cpu)]
+    cpu_lm, cpu_ja = max(e[0] for e in cpu_errs), max(e[1] for e in cpu_errs)
+    if cpu_lm > LANDMARK_TOL_MM or cpu_ja > ANGLE_TOL:
+        raise RuntimeError(f"lockstep card vs CPU: landmarks {cpu_lm} mm, joint angles {cpu_ja}")
+
+    return dict(
+        recordings=r,
+        frames_per_recording=n,
+        chunk=chunk,
+        frames_per_s=r * n / wall,
+        wall_s=wall,
+        frames_per_s_repeats=repeats,
+        k1_launches=launches,
+        k1_slots_per_launch=LOCKSTEP_SLOTS,
+        stage_ms_per_chunk=stages,
+        chunk_trace=trace,
+        k1_n768=k1,
+        sequential_checked=list(SEQUENTIAL_CHECKED),
+        vs_sequential_landmark_max_err_mm=seq_lm,
+        vs_sequential_joint_angle_max_err=seq_ja,
+        cpu_checked_recordings=CPU_CHECKED,
+        vs_cpu_landmark_max_err_mm=cpu_lm,
+        vs_cpu_joint_angle_max_err=cpu_ja,
+    )
+
+
 def main(seed: int = 0) -> int:
     import torch
 
@@ -636,22 +891,27 @@ def main(seed: int = 0) -> int:
     ts = torch_scene(scene, "cuda")
     k = kernel_phase(ts, ModelConfig().input_size)
     path = path_phase(scene, ts, seed)
+    del ts
+    lockstep = lockstep_phase(seed)
 
-    n4, n96 = k["n4"], k["n96"]
+    n768 = lockstep["k1_n768"]
     print(json.dumps({"path": path, "card": smi}))
+    print(json.dumps({"lockstep": lockstep, "card": smi}))
     print(json.dumps({"kernels": [{
         "name": "bilinear_sample",
         "route": "cuda",
         "source": "absolutetrack_tpu_torch/csrc/bilinear_sample.cu",
         "replaces": "absolutetrack_tpu/ops/pallas_warp.py:224 (_fused_warp_kernel); "
-                    ":195 (_narrow_warp_kernel); :307 (_banded_warp_kernel); "
-                    ":322 (_covering_warp_kernel)",
-        "launches": path["k1_launches"],
-        "max_abs_err": k["max_abs_err"],
+                    ":195 (_narrow_warp_kernel); :281 (_overflow_warp_kernel); "
+                    ":307 (_banded_warp_kernel); :322 (_covering_warp_kernel)",
+        "launches": path["k1_launches"] + lockstep["k1_launches"],
+        "launches_by_path": {"sequential": path["k1_launches"], "lockstep": lockstep["k1_launches"]},
+        "max_abs_err": max(k["max_abs_err"], n768["max_abs_err"], n768["n1024_max_abs_err"]),
         "tolerance": K1_TOL,
-        **n4,
-        "shape": "N=4 P=9216 uint8 512x640 (valid 480x636)",
-        "n96": n96,
+        **k["n4"],
+        "shape": "N=4 P=9216 uint8 512x640 (valid 480x636): the sequential path",
+        "n96": dict(k["n96"], shape="N=96: the non-pipelined lockstep frame"),
+        "n768": dict(n768, shape="N=768: the pipelined lockstep chunk (24 recordings x 8 frames x 4 slots)"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

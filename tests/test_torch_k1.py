@@ -38,7 +38,10 @@ def test_build_command_targets_sm90a_without_fast_math():
 def test_source_names_the_replaced_tpu_kernels():
     text = warp_kernel.SOURCE.read_text()
     assert 'extern "C" int k1_bilinear_sample(' in text
-    for replaced in ("_fused_warp_kernel", "_narrow_warp_kernel", "_banded_warp_kernel", "_covering_warp_kernel"):
+    for replaced in (
+        "_fused_warp_kernel", "_narrow_warp_kernel", "_overflow_warp_kernel",
+        "_banded_warp_kernel", "_covering_warp_kernel",
+    ):
         assert replaced in text
 
 
@@ -60,6 +63,14 @@ def test_k1_refuses_cpu_tensors():
             torch.ones(1, 3), torch.ones(1, 3),
         )
     assert warp_kernel.K1.launches == before
+
+
+def test_reset_counts_clears_launches_and_shapes():
+    k = warp_kernel.K1Kernel()
+    k.launches = 2
+    k.shapes[(768, 9216)] = 2
+    k.reset_counts()
+    assert k.launches == 0 and not k.shapes
 
 
 def test_other_devices_raise():
@@ -125,10 +136,11 @@ def test_k1_matches_plain_on_the_card(cuda_device, dtype, padded):
     # in range, then out of range (a negative index counts from the end once, then clamps)
     for idx in (torch.tensor([2, 0, 3, 1]), torch.tensor([-1, 4, -6, 9])):
         want = warp_kernel.bilinear_sample(imgs, idx, coords, valid_hw)
-        before = warp_kernel.K1.launches
+        before, before_shape = warp_kernel.K1.launches, warp_kernel.K1.shapes[(4, 9216)]
         got = warp_kernel.bilinear_sample(
             imgs.to(cuda_device), idx.to(cuda_device), tuple(c.to(cuda_device) for c in coords), valid_hw
         )
         torch.cuda.synchronize()
         assert warp_kernel.K1.launches == before + 1
+        assert warp_kernel.K1.shapes[(4, 9216)] == before_shape + 1
         assert float((got.cpu() - want).abs().max()) <= chip_smoke.K1_TOL

@@ -25,6 +25,7 @@ from absolutetrack_tpu.geometry import camera as jcam
 from absolutetrack_tpu.geometry import crop as jcrop
 from absolutetrack_tpu.kinematics.hand_model import hand_model_from_dict as jhand
 from absolutetrack_tpu.ops import resample as jrs
+from absolutetrack_tpu.ops import pallas_warp
 from absolutetrack_tpu.ops.pallas_warp import _plan_blocked, _plan_lines, bilinear_sample_mxu
 from absolutetrack_tpu.tracker.crop_gen import gen_crop_slots as jgen
 from absolutetrack_tpu_torch.geometry import camera as cam
@@ -190,6 +191,12 @@ def _route_coords(route, rng):
     elif route == "b_narrow":  # row bands alternate: pairs overflow, tiles fit
         x = np.broadcast_to(120 + gx[None] * 2.0, (2, 96, 96))
         y = np.broadcast_to(20.0 + ((gx[None] // 16) % 2) * 440.0, (2, 96, 96))
+    elif route == "c_overflow":  # tests/test_pallas_warp.py:183-218: one pass-A pair of
+        # slot 0 straddles rows 20 and 460, so its tiles fit only the overflow window
+        x = np.broadcast_to(120 + gx[None] * 2.0, (2, 96, 96))
+        y = np.broadcast_to(200 + gy[None] * 0.5, (2, 96, 96)).copy()
+        y[0, :16, :32] = 20.0
+        y[0, :16, 32:64] = 460.0
     elif route == "d_banded":  # narrow row bands, sawtooth columns
         x = np.broadcast_to((gx[None] * 37.3) % 620.0, (2, 96, 96))
         y = np.broadcast_to(100 + gy[None] * 0.4, (2, 96, 96))
@@ -201,9 +208,16 @@ def _route_coords(route, rng):
     return x.reshape(2, -1).astype(np.float32), y.reshape(2, -1).astype(np.float32)
 
 
-@pytest.mark.parametrize("route", ["a_fused", "b_narrow", "d_banded", "e_covering"])
-def test_plain_sampler_matches_each_pallas_route(route):
-    """The function K1 replaces, on each route of the Pallas dispatch."""
+@pytest.mark.parametrize("route", ["a_fused", "b_narrow", "c_overflow", "d_banded", "e_covering"])
+def test_plain_sampler_matches_each_pallas_route(route, monkeypatch):
+    """The function K1 replaces, on each route of the Pallas dispatch.
+
+    ``c_overflow``: the dispatch sends a call to pass A plus the overflow
+    pass only from ``_TWOPASS_MIN_TILES`` (2048) tiles up, the 768-slot
+    lockstep chunk; the threshold is lowered here as
+    ``tests/test_pallas_warp.py`` lowers it, and the plan must take
+    ``twopass``: a few tiles miss pass A's window, within the overflow
+    budget, and all fit the overflow window."""
     rng = np.random.default_rng(12)
     imgs = rng.integers(0, 256, (2,) + chip_smoke.SRC_HW, dtype=np.uint8)
     x, y = _route_coords(route, rng)
@@ -215,8 +229,15 @@ def test_plain_sampler_matches_each_pallas_route(route):
     if crop_hw is not None:
         blocked = _plan_blocked(xj, yj, h, w, 2, x.shape[1], crop_hw)
         assert bool(blocked.fit_a.all()) == (route == "a_fused")
-        assert bool(blocked.all_fit) == (route in ("a_fused", "b_narrow"))
-    assert bool(lines.all_fit) == (route != "e_covering")
+        assert bool(blocked.all_fit) == (route in ("a_fused", "b_narrow", "c_overflow"))
+    if route == "c_overflow":
+        monkeypatch.setattr(pallas_warp, "_TWOPASS_MIN_TILES", 0)
+        n_over = int(np.sum(~np.asarray(blocked.fit_a)))
+        budget = min(pallas_warp._OVERFLOW_BUDGET, max(blocked.fit_a.size // 16, 8))
+        assert 0 < n_over <= budget
+        assert bool(jnp.all(blocked.fit_a | blocked.fit))
+    else:
+        assert bool(lines.all_fit) == (route != "e_covering")
     want = np.asarray(
         bilinear_sample_mxu(jnp.asarray(imgs), jnp.asarray(idx), (jnp.asarray(x), jnp.asarray(y)), interpret=True, crop_hw=crop_hw)
     )
