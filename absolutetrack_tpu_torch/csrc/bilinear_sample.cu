@@ -11,136 +11,235 @@
 // that miss pass A's window, merged per tile, on calls of >= 2048 tiles
 // (the 768-slot lockstep chunk), and cuts calls above 768 slots into
 // slabs to keep its scalar memory small. Hopper gathers, so K1 has no
-// window to overflow, no tiling and no planner: one thread per output
-// pixel, one launch for any N (the grid is (N * P + 255) / 256 blocks of
-// 256 threads with 64-bit pixel indices: 27,648 blocks at N = 768,
-// 36,864 at N = 1,024).
+// window to overflow and no planner: one launch for any N.
 //
-// What bounds it: bytes. Each output pixel moves 8 B of coordinates in
-// and 4 B out; the taps are gathers from the views, which at the main
-// path's four uint8 views (1.2 MB) sit in the 50 MB L2. At the main
-// path's 4 x 9,216 pixels that is ~0.45 MB of coordinate and output
-// traffic, well under a microsecond at 3.35 TB/s, so one call is
-// launch-bound. At the 24-recording lockstep chunk (768 x 9,216 pixels)
-// the coordinates and output alone are ~85 MB and the 768 views 252 MB,
-// of which the taps touch only the crops' footprints: there the launch
-// is bound by bytes. Coordinate reads and output writes are coalesced.
+// It also carries the int8 row-weight mode of the shared body of those
+// kernels, _tile_contrib's int8 row mix (pallas_warp.py:127-173, switched
+// by set_int8_window): for uint8 sources the two row weights quantize to
+// q = round(127 w), rounded half to even, the row mix is an exact int32
+// sum, and one multiply by 1/127 returns to f32 before the column mix.
+//
+// What bounds it. Each output pixel moves 8 B of coordinates in and 4 B
+// out (85 MB at the 768-slot lockstep chunk: the byte bound), and its
+// four taps gather from the views, whose touched sectors (12 MB at the
+// chunk) stay in the 50 MB L2. Measured on the H100 (scripts/k1_variants.py),
+// layouts with one pixel a lane took time in proportion to the distinct
+// 128-byte lines that a warp's gather touches, L1's line lookups: a warp
+// of 32 pixels along a crop row walks down a source column, a line a
+// lane, on the two views the rig rolls 90 degrees (2.1 lines a pixel over
+// the chunk). So the lanes of one gather cover an 8 x 4 patch of the crop
+// (0.85 lines a pixel, in either roll); the chunk then runs at 64% of its
+// byte bound. At the sequential path's 4 x 9,216 pixels the launch is
+// bound by latency.
+//
+// The design:
+// * Grid (patches of a slot, slots): blockIdx.y is the slot, each warp of
+//   a block one 8-wide patch of the slot's crop rows (row_px pixels wide,
+//   from the caller's (N, H, W) planes; 8 for flat planes, which puts a
+//   gather's lanes on 32 consecutive pixels). Indices inside a slot are
+//   32-bit; the slot's 64-bit base and its view come from one warp-wide
+//   broadcast load a slot, with no barrier (resolving the view once a
+//   block through shared memory measured slower: its barrier holds every
+//   warp), and no pixel divides. Beyond 65,535 slots the blocks stride
+//   over slots.
+// * Four pixels a thread, four rows apart (a warp patch 16 rows tall);
+//   two (8 rows) on launches of fewer than 2^20 pixels, about one wave of
+//   the card, where more, shorter threads spread over more SMs. Each
+//   coordinate load and output store of a warp covers four whole 32-byte
+//   sectors.
+// * All taps of a thread are issued before any is combined, through the
+//   read-only path. Coordinates and output take plain loads and stores:
+//   streaming hints (__ldcs, __stcs) measured 1-2% slower at the chunk.
 //
 // Arithmetic follows absolutetrack_tpu/ops/resample.py:36-76 line for
 // line: the in-bounds predicate of :60, the clamps of :61-62 and the tap
 // combination of :70-75 in f32. The products and sums use the _rn
 // intrinsics so that nvcc cannot contract them into FMAs: every operation
-// rounds as in the plain PyTorch version. Built without --use_fast_math
-// (no flush-to-zero).
+// rounds as in the plain PyTorch version (ops/warp_kernel.py). Built
+// without --use_fast_math (no flush-to-zero).
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libk1.so bilinear_sample.cu
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-__device__ __forceinline__ float load_tap(const uint8_t* p) { return (float)(*p); }
-__device__ __forceinline__ float load_tap(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_tap(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
+constexpr int kWarps = 4;    // warps a block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPatchW = 8;   // a gather's lanes: kPatchW x kPatchH pixels
+constexpr int kPatchH = 4;
+constexpr int kMaxPixels = 4;  // pixels a thread, kPatchH rows apart
+constexpr int64_t kFewPixels = 1 << 20;  // launches below this take 2 pixels a thread
+constexpr int kMaxGridY = 65535;
+constexpr float kInv127 = 1.0f / 127.0f;  // f32(1/127), as the Pallas body's (1.0 / 127.0)
 
-template <typename T>
-__global__ void bilinear_sample_kernel(
-    const T* __restrict__ src,            // (V, src_rows, row_stride)
-    const int64_t* __restrict__ image_idx,  // (N,)
-    const float* __restrict__ xs,         // (N, P)
-    const float* __restrict__ ys,         // (N, P)
-    float* __restrict__ out,              // (N, P)
-    int n_views, int64_t view_stride, int row_stride,
-    int valid_h, int valid_w, int64_t n, int64_t p) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n * p) return;
-  const int64_t slot = i / p;
-
-  const float x = xs[i];
-  const float y = ys[i];
-  const float x0 = floorf(x);
-  const float y0 = floorf(y);
-  const float wx = x - x0;
-  const float wy = y - y0;
-  // resample.py:60 in float: identical to the int32 form for |x| < 2^24,
-  // and free of overflow beyond it; NaN coordinates fail `x >= 0`
-  const bool valid = (x >= 0.f) && (x0 + 1.f <= (float)(valid_w - 1)) &&
-                     (y >= 0.f) && (y0 + 1.f <= (float)(valid_h - 1));
-  if (!valid) {
-    out[i] = 0.f;
-    return;
+// Source element types: the raw value a tap loads, and its f32 value.
+struct U8 {
+  using Raw = uint8_t;
+  static __device__ __forceinline__ float value(Raw v) { return (float)v; }
+};
+struct F32 {
+  using Raw = float;
+  static __device__ __forceinline__ float value(Raw v) { return v; }
+};
+struct BF16 {  // the bf16 bit pattern; its f32 value is exact
+  using Raw = uint16_t;
+  static __device__ __forceinline__ float value(Raw v) {
+    return __uint_as_float((uint32_t)v << 16);
   }
-  // resample.py:61-62 (inside the valid region they are no-ops)
-  const int x0c = min(max((int)x0, 0), valid_w - 2);
-  const int y0c = min(max((int)y0, 0), valid_h - 2);
+};
 
-  // JAX's rule for the view index, as the plain version's view_index: a
-  // negative index counts from the end once, then the gather clamps
-  int64_t v = image_idx[slot];
-  if (v < 0) v += n_views;
-  v = v < 0 ? 0 : (v >= n_views ? n_views - 1 : v);
-  const T* row0 = src + v * view_stride + (int64_t)y0c * row_stride + x0c;
-  const T* row1 = row0 + row_stride;
-  const float f00 = load_tap(row0);
-  const float f01 = load_tap(row0 + 1);
-  const float f10 = load_tap(row1);
-  const float f11 = load_tap(row1 + 1);
+struct Args {
+  const int64_t* image_idx;  // (N,)
+  const float* xs;           // (N, P)
+  const float* ys;           // (N, P)
+  float* out;                // (N, P)
+  int64_t view_stride;       // elements between views
+  int64_t n;
+  int n_views, row_stride, valid_h, valid_w, p;
+  int row_px, patches_x;     // pixels in a crop row; patches across a row
+};
 
-  const float ax = __fsub_rn(1.f, wx);
-  const float ay = __fsub_rn(1.f, wy);
-  float acc = __fmul_rn(__fmul_rn(f00, ax), ay);
-  acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(f01, wx), ay));
-  acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(f10, ax), wy));
-  acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(f11, wx), wy));
-  out[i] = acc;
+template <typename S, bool kInt8, int kPixels>
+__global__ void __launch_bounds__(kThreads)
+bilinear_sample_kernel(const typename S::Raw* __restrict__ src, Args a) {
+  using Raw = typename S::Raw;
+  constexpr int kWarpRows = kPatchH * kPixels;  // a warp covers kPatchW x kWarpRows
+  // this thread's pixels: column col of rows row0 + k * kPatchH of the
+  // warp's patch (one division a thread, by the patches in a row)
+  const int lane = threadIdx.x & 31;
+  const int patch = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int patch_row = patch / a.patches_x;
+  const int col = (patch - patch_row * a.patches_x) * kPatchW + (lane % kPatchW);
+  const int first = (patch_row * kWarpRows + lane / kPatchW) * a.row_px + col;
+  const bool in_row = col < a.row_px;
+
+  for (int64_t slot = blockIdx.y; slot < a.n; slot += gridDim.y) {
+    const int64_t base = slot * a.p;
+    float x[kPixels], y[kPixels];
+#pragma unroll
+    for (int k = 0; k < kPixels; ++k) {
+      const int i = first + k * kPatchH * a.row_px;
+      const bool in = in_row && i < a.p;
+      x[k] = in ? a.xs[base + i] : -1.f;
+      y[k] = in ? a.ys[base + i] : -1.f;
+    }
+    // JAX's rule for the view index, as the plain version's view_index: a
+    // negative index counts from the end once, then the gather clamps
+    int64_t v = __ldg(a.image_idx + slot);  // one broadcast load a warp
+    if (v < 0) v += a.n_views;
+    v = v < 0 ? 0 : (v >= a.n_views ? a.n_views - 1 : v);
+    const Raw* view = src + v * a.view_stride;
+
+    // resample.py:60 in float: identical to the int32 form for |x| < 2^24,
+    // and free of overflow beyond it; NaN coordinates fail `x >= 0`. The
+    // clamps of :61-62 keep every tap inside the view, so the taps of an
+    // invalid pixel are loaded too and masked after.
+    float wx[kPixels], wy[kPixels];
+    bool valid[kPixels];
+    int offset[kPixels];
+#pragma unroll
+    for (int k = 0; k < kPixels; ++k) {
+      const float x0 = floorf(x[k]);
+      const float y0 = floorf(y[k]);
+      wx[k] = x[k] - x0;
+      wy[k] = y[k] - y0;
+      valid[k] = (x[k] >= 0.f) && (x0 + 1.f <= (float)(a.valid_w - 1)) &&
+                 (y[k] >= 0.f) && (y0 + 1.f <= (float)(a.valid_h - 1));
+      const int x0c = min(max((int)x0, 0), a.valid_w - 2);
+      const int y0c = min(max((int)y0, 0), a.valid_h - 2);
+      offset[k] = y0c * a.row_stride + x0c;
+    }
+    Raw t00[kPixels], t01[kPixels], t10[kPixels], t11[kPixels];
+#pragma unroll
+    for (int k = 0; k < kPixels; ++k) {
+      const Raw* row0 = view + offset[k];
+      t00[k] = __ldg(row0);
+      t01[k] = __ldg(row0 + 1);
+      t10[k] = __ldg(row0 + a.row_stride);
+      t11[k] = __ldg(row0 + a.row_stride + 1);
+    }
+
+#pragma unroll
+    for (int k = 0; k < kPixels; ++k) {
+      const float ax = __fsub_rn(1.f, wx[k]);
+      const float ay = __fsub_rn(1.f, wy[k]);
+      float acc;
+      if constexpr (kInt8) {
+        // the int8 row mix: q = round(127 w), half to even; the int32
+        // sums are exact (an invalid pixel's weights are masked below)
+        const int q0 = __float2int_rn(__fmul_rn(ay, 127.f));
+        const int q1 = __float2int_rn(__fmul_rn(wy[k], 127.f));
+        const float c0 = __fmul_rn((float)(q0 * (int)t00[k] + q1 * (int)t10[k]), kInv127);
+        const float c1 = __fmul_rn((float)(q0 * (int)t01[k] + q1 * (int)t11[k]), kInv127);
+        acc = __fadd_rn(__fmul_rn(c0, ax), __fmul_rn(c1, wx[k]));
+      } else {
+        const float f00 = S::value(t00[k]), f01 = S::value(t01[k]);
+        const float f10 = S::value(t10[k]), f11 = S::value(t11[k]);
+        acc = __fmul_rn(__fmul_rn(f00, ax), ay);
+        acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(f01, wx[k]), ay));
+        acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(f10, ax), wy[k]));
+        acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(f11, wx[k]), wy[k]));
+      }
+      const int i = first + k * kPatchH * a.row_px;
+      if (in_row && i < a.p) a.out[base + i] = valid[k] ? acc : 0.f;
+    }
+  }
 }
 
-constexpr int kThreads = 256;
-
-template <typename T>
-int launch(const void* src, const int64_t* image_idx, const float* xs,
-           const float* ys, float* out, int n_views, int64_t view_stride,
-           int row_stride, int valid_h, int valid_w, int64_t n, int64_t p,
-           cudaStream_t stream) {
-  const int64_t total = n * p;
-  if (total == 0) return 0;
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  bilinear_sample_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(src), image_idx, xs, ys, out, n_views, view_stride,
-      row_stride, valid_h, valid_w, n, p);
+template <typename S, bool kInt8, int kPixels>
+int launch_with(const void* src, const Args& a, cudaStream_t stream) {
+  const int64_t rows = (a.p + a.row_px - 1) / a.row_px;
+  const int64_t warp_rows = kPatchH * kPixels;
+  const int64_t patches = (int64_t)a.patches_x * ((rows + warp_rows - 1) / warp_rows);
+  const dim3 grid((unsigned)((patches + kWarps - 1) / kWarps),
+                  (unsigned)(a.n < kMaxGridY ? a.n : kMaxGridY));
+  bilinear_sample_kernel<S, kInt8, kPixels><<<grid, kThreads, 0, stream>>>(
+      static_cast<const typename S::Raw*>(src), a);
   return (int)cudaGetLastError();
+}
+
+template <typename S, bool kInt8>
+int launch(const void* src, const Args& a, cudaStream_t stream) {
+  return a.n * a.p < kFewPixels ? launch_with<S, kInt8, 2>(src, a, stream)
+                                : launch_with<S, kInt8, kMaxPixels>(src, a, stream);
 }
 
 }  // namespace
 
-// src_dtype: 0 = uint8, 1 = float32, 2 = bfloat16.
-// Returns the cudaError_t of the launch (0 on success); 1000 for an
-// unknown dtype code.
-extern "C" int k1_bilinear_sample(const void* src, int src_dtype,
-                                  const int64_t* image_idx, const float* xs,
-                                  const float* ys, float* out, int n_views,
-                                  int64_t view_stride, int row_stride,
-                                  int valid_h, int valid_w, int64_t n,
-                                  int64_t p, void* stream) {
+// src_dtype: 0 = uint8, 1 = float32, 2 = bfloat16. int8_rows: 1 for the
+// int8 row-weight mode (uint8 only). row_px: the pixels of a crop row, the
+// layout of each slot's P pixels (row-major); it changes the order in
+// which K1 visits pixels, never a result.
+// Returns the cudaError_t of the launch (0 on success), or 1000 for an
+// unknown dtype, 1001 for int8 rows on a source that is not uint8, 1002
+// for a shape outside 32-bit indices within a slot or a view.
+extern "C" int k1_bilinear_sample(const void* src, int src_dtype, int int8_rows,
+                                  int row_px, const int64_t* image_idx,
+                                  const float* xs, const float* ys, float* out,
+                                  int n_views, int64_t view_stride,
+                                  int row_stride, int valid_h, int valid_w,
+                                  int64_t n, int64_t p, void* stream) {
+  if (src_dtype < 0 || src_dtype > 2) return 1000;
+  if (int8_rows && src_dtype != 0) return 1001;
+  // a block's last warps may sit up to kWarps patch rows past the slot
+  if (row_px < 1 || p + (int64_t)(kWarps + 3) * kPatchH * kMaxPixels * row_px > INT32_MAX ||
+      view_stride > INT32_MAX)
+    return 1002;
+  if (n == 0 || p == 0) return 0;
+  const Args a{image_idx, xs, ys, out, view_stride, n,
+               n_views, row_stride, valid_h, valid_w, (int)p,
+               row_px, (row_px + kPatchW - 1) / kPatchW};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (src_dtype) {
     case 0:
-      return launch<uint8_t>(src, image_idx, xs, ys, out, n_views, view_stride,
-                             row_stride, valid_h, valid_w, n, p, s);
+      return int8_rows ? launch<U8, true>(src, a, s) : launch<U8, false>(src, a, s);
     case 1:
-      return launch<float>(src, image_idx, xs, ys, out, n_views, view_stride,
-                           row_stride, valid_h, valid_w, n, p, s);
-    case 2:
-      return launch<__nv_bfloat16>(src, image_idx, xs, ys, out, n_views,
-                                   view_stride, row_stride, valid_h, valid_w,
-                                   n, p, s);
+      return launch<F32, false>(src, a, s);
     default:
-      return 1000;
+      return launch<BF16, false>(src, a, s);
   }
 }

@@ -103,5 +103,5 @@ def warp_perspective_crop(
     w, h = crop_size
     n = src_view_idx.shape[0]
     wx, wy = _crop_source_coords_planar(src_cameras, crop_cameras, crop_size, src_kind, depth_check)
-    out = bilinear_sample(src_images, src_view_idx, (wx, wy), src_valid_hw=src_valid_hw)
-    return out.reshape(n, h, w)
+    # (N, h, w) planes: K1 lays its gathers on the crop's rows
+    return bilinear_sample(src_images, src_view_idx, (wx.view(n, h, w), wy.view(n, h, w)), src_valid_hw=src_valid_hw)

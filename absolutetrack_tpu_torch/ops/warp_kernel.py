@@ -13,6 +13,14 @@ says what bounds it.
 launches K1 (or raises), a CPU tensor takes ``bilinear_sample_plain``. The
 kernel is built with nvcc into a shared library with a C interface at
 first use, under ``_build/`` beside this package, and loaded with ctypes.
+
+``set_int8_window`` switches the int8 row-weight mode of the Pallas body
+(``pallas_warp.py:127-173``) for uint8 sources: the two row weights
+quantize to ``round(127 w)`` and the row mix is an exact integer sum. The
+JAX switch reaches only the Pallas kernels, so JAX's CPU gather
+(``resample.py:101-106``) ignores it; the port's switch applies on both
+devices, K1 and the plain version alike, so that the CPU tests hold the
+int8 route against the Pallas kernels in interpret mode.
 """
 
 from __future__ import annotations
@@ -34,6 +42,19 @@ SOURCE = _PKG_DIR / "csrc" / "bilinear_sample.cu"
 BUILD_DIR = _PKG_DIR / "_build"
 
 _DTYPE_CODES = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
+_INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()  # f32(1/127), as K1's
+
+_INT8_WINDOW = False  # module switch: the int8 row mix for uint8 sources
+
+
+def set_int8_window(enabled: bool) -> bool:
+    """Switch the int8 row-weight mode (uint8 sources only) for the calls
+    that follow, on either device; returns the previous value. Mirrors
+    ``absolutetrack_tpu/ops/pallas_warp.py::set_int8_window``."""
+    global _INT8_WINDOW
+    prev = _INT8_WINDOW
+    _INT8_WINDOW = bool(enabled)
+    return prev
 
 
 def split_coord_planes(coords) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -53,14 +74,22 @@ def view_index(image_idx: torch.Tensor, n_views: int) -> torch.Tensor:
 def bilinear_sample_plain(
     images: torch.Tensor,  # (V, H, W)
     image_idx: torch.Tensor,  # (N,) int
-    coords,  # (N, P, 2) (x, y) or an (x, y) plane tuple
+    coords,  # (N, P, 2) (x, y), or an (x, y) tuple of (N, P) or (N, H, W) planes
     src_valid_hw: Optional[Tuple[int, int]] = None,
+    int8_rows: bool = False,
 ) -> torch.Tensor:
-    """Bilinear sampling, 0 where any tap is outside the source -> (N, P) f32.
+    """Bilinear sampling, 0 where any tap is outside the source -> f32 of
+    the planes' shape.
 
     ``absolutetrack_tpu/ops/resample.py:36-76`` line for line.
     ``src_valid_hw`` is the true source extent of pre-padded ``images``.
+    ``int8_rows`` (uint8 ``images`` only) takes the int8 row mix of
+    ``pallas_warp.py:166-173`` reduced to the two rows it weights:
+    ``q = round(127 w)`` half to even, the row sums exact in int32, times
+    f32(1/127), then the column mix in f32.
     """
+    if int8_rows and images.dtype != torch.uint8:
+        raise ValueError(f"int8 rows need uint8 images, got {images.dtype}")
     H, W = src_valid_hw or (images.shape[-2], images.shape[-1])
     x, y = split_coord_planes(coords)
     x0 = torch.floor(x)
@@ -74,18 +103,27 @@ def bilinear_sample_plain(
     x0c = torch.clamp(x0i, 0, W - 2).long()
     y0c = torch.clamp(y0i, 0, H - 2).long()
 
-    idx = view_index(image_idx, images.shape[0])[:, None]
+    idx = view_index(image_idx, images.shape[0]).view((-1,) + (1,) * (x.dim() - 1))
     f00 = images[idx, y0c, x0c]
     f01 = images[idx, y0c, x0c + 1]
     f10 = images[idx, y0c + 1, x0c]
     f11 = images[idx, y0c + 1, x0c + 1]
 
-    out = (
-        f00 * (1 - wx) * (1 - wy)
-        + f01 * wx * (1 - wy)
-        + f10 * (1 - wx) * wy
-        + f11 * wx * wy
-    )
+    if int8_rows:
+        # an invalid pixel is masked below; a 0 weight keeps its int32 sums in range
+        wyv = torch.where(valid, wy, torch.zeros((), dtype=wy.dtype, device=wy.device))
+        q0 = torch.round((1 - wyv) * 127).to(torch.int32)
+        q1 = torch.round(wyv * 127).to(torch.int32)
+        t0 = (q0 * f00.int() + q1 * f10.int()).float() * _INV127
+        t1 = (q0 * f01.int() + q1 * f11.int()).float() * _INV127
+        out = t0 * (1 - wx) + t1 * wx
+    else:
+        out = (
+            f00 * (1 - wx) * (1 - wy)
+            + f01 * wx * (1 - wy)
+            + f10 * (1 - wx) * wy
+            + f11 * wx * wy
+        )
     return torch.where(valid, out, torch.zeros((), dtype=out.dtype, device=out.device))
 
 
@@ -145,41 +183,63 @@ class K1Kernel:
         if self._fn is None:
             fn = ctypes.CDLL(str(self.build())).k1_bilinear_sample
             fn.restype = ctypes.c_int
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_int,  # src, dtype code
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # idx, x, y
-                ctypes.c_void_p,  # out
-                ctypes.c_int, ctypes.c_int64, ctypes.c_int,  # views, view/row stride
-                ctypes.c_int, ctypes.c_int,  # valid h, w
-                ctypes.c_int64, ctypes.c_int64,  # n, p
-                ctypes.c_void_p,  # stream
-            ]
+            fn.argtypes = ARGTYPES
             self._fn = fn
         return self._fn
 
-    def __call__(self, images, image_idx, x, y, src_valid_hw=None) -> torch.Tensor:
+    def __call__(self, images, image_idx, x, y, src_valid_hw=None, int8_rows=False) -> torch.Tensor:
         if images.device.type != "cuda":
             # the kernel would dereference host pointers
             raise ValueError(f"K1 needs CUDA tensors, images are on {images.device}")
-        _check_cuda_inputs(images, image_idx, x, y, src_valid_hw)
-        v, hp, wp = images.shape
-        h, w = src_valid_hw or (hp, wp)
-        n, p = x.shape
-        out = torch.empty((n, p), dtype=torch.float32, device=images.device)
+        _check_cuda_inputs(images, image_idx, x, y, src_valid_hw, int8_rows)
+        n, p = x.shape[0], x.shape[1:].numel()
+        out = torch.empty(x.shape, dtype=torch.float32, device=images.device)
         stream = torch.cuda.current_stream(images.device).cuda_stream
-        err = self.function()(
-            images.data_ptr(), _DTYPE_CODES[images.dtype],
-            image_idx.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
-            v, hp * wp, wp, h, w, n, p, stream,
-        )
+        err = self.function()(*k1_arguments(images, image_idx, x, y, out, src_valid_hw, int8_rows, stream))
         if err != 0:
-            raise RuntimeError(f"K1 bilinear_sample launch failed: cudaError {err}")
+            raise RuntimeError(f"K1 bilinear_sample launch failed: error {err}")
         self.launches += 1
         self.shapes[(n, p)] += 1
         return out
 
 
-def _check_cuda_inputs(images, image_idx, x, y, src_valid_hw):
+# the C signature of k1_bilinear_sample, in order
+ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_int,  # src, dtype code
+    ctypes.c_int, ctypes.c_int,  # int8 rows, pixels a crop row
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # idx, x, y
+    ctypes.c_void_p,  # out
+    ctypes.c_int, ctypes.c_int64, ctypes.c_int,  # views, view/row stride
+    ctypes.c_int, ctypes.c_int,  # valid h, w
+    ctypes.c_int64, ctypes.c_int64,  # n, p
+    ctypes.c_void_p,  # stream
+]
+
+
+FLAT_ROW_PX = 8  # flat (N, P) planes: a gather's 8 x 4 lanes on 32 consecutive pixels
+
+
+def row_px(x: torch.Tensor) -> int:
+    """The crop row width that K1 lays its warps' 8 x 4 pixel patches on:
+    W of (N, H, W) planes. It sets the order of K1's gathers, never a
+    result; flat (N, P) planes take ``FLAT_ROW_PX``."""
+    return x.shape[-1] if x.dim() == 3 else FLAT_ROW_PX
+
+
+def k1_arguments(images, image_idx, x, y, out, src_valid_hw, int8_rows, stream) -> tuple:
+    """The arguments of one ``k1_bilinear_sample`` call, in ``ARGTYPES`` order."""
+    v, hp, wp = images.shape
+    h, w = src_valid_hw or (hp, wp)
+    n, p = x.shape[0], x.shape[1:].numel()
+    return (
+        images.data_ptr(), _DTYPE_CODES[images.dtype],
+        int(bool(int8_rows)), row_px(x),
+        image_idx.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
+        v, hp * wp, wp, h, w, n, p, stream,
+    )
+
+
+def _check_cuda_inputs(images, image_idx, x, y, src_valid_hw, int8_rows=False):
     device = images.device
     for name, t in (("image_idx", image_idx), ("x", x), ("y", y)):
         if t.device != device:
@@ -190,12 +250,17 @@ def _check_cuda_inputs(images, image_idx, x, y, src_valid_hw):
         raise ValueError(f"images must be a contiguous (V, H, W) tensor, got {tuple(images.shape)}")
     if images.dtype not in _DTYPE_CODES:
         raise ValueError(f"images dtype {images.dtype} not in {list(_DTYPE_CODES)}")
+    if int8_rows and images.dtype != torch.uint8:
+        raise ValueError(f"int8 rows need uint8 images, got {images.dtype}")
     if x.dtype != torch.float32 or y.dtype != torch.float32:
         raise ValueError("coordinate planes must be float32")
-    if x.dim() != 2 or x.shape != y.shape:
-        raise ValueError(f"x and y must be (N, P) planes, got {tuple(x.shape)}, {tuple(y.shape)}")
+    if x.dim() not in (2, 3) or x.shape != y.shape:
+        raise ValueError(f"x and y must be (N, P) or (N, H, W) planes, got {tuple(x.shape)}, {tuple(y.shape)}")
     if image_idx.dtype != torch.int64 or image_idx.shape != (x.shape[0],):
         raise ValueError("image_idx must be an int64 (N,) tensor")
+    # K1 indexes inside a slot (and a little past it) and inside a view with 32-bit integers
+    if x.shape[1:].numel() + 256 * row_px(x) >= 2**31 or images.shape[1] * images.shape[2] >= 2**31:
+        raise ValueError(f"planes {tuple(x.shape)} or views {tuple(images.shape)} are too large for K1")
     if src_valid_hw is not None:
         h, w = src_valid_hw
         if not (2 <= h <= images.shape[1] and 2 <= w <= images.shape[2]):
@@ -213,11 +278,14 @@ def bilinear_sample(
     coords,
     src_valid_hw: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """Bilinear sampling -> (N, P) f32: K1 on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    """Bilinear sampling -> f32 of the planes' shape: K1 on a CUDA tensor,
+    the plain version on a CPU tensor; uint8 images take the int8 row mix
+    while ``set_int8_window(True)`` holds. Give K1 (N, H, W) planes of
+    crops: it lays its gathers on the crop's rows."""
+    int8_rows = _INT8_WINDOW and images.dtype == torch.uint8
     if images.device.type == "cpu":
-        return bilinear_sample_plain(images, image_idx, coords, src_valid_hw)
+        return bilinear_sample_plain(images, image_idx, coords, src_valid_hw, int8_rows)
     if images.device.type != "cuda":
         raise ValueError(f"no bilinear_sample for device {images.device}")
     x, y = split_coord_planes(coords)
-    return K1(images, image_idx, x, y, src_valid_hw)
+    return K1(images, image_idx, x, y, src_valid_hw, int8_rows)

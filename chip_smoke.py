@@ -3,12 +3,15 @@
     python3 chip_smoke.py
 
 Builds kernel K1 (``absolutetrack_tpu_torch/csrc/bilinear_sample.cu``)
-with nvcc and holds it against its plain PyTorch version on the card at
-the sequential path's shape (4 slots x 96x96) and at the non-pipelined
-lockstep frame's (24 recordings x 4 slots, 96 slots), timing each by
-CUDA-graph replay (device time) and by eager calls. Then it drives two
-paths at full ``ModelConfig()`` width with TF32 off, K1's launches counted
-from 0 just before each:
+with nvcc and holds it against its plain PyTorch version on the card, in
+both row-weight modes (f32, and int8 on uint8 views), at the sequential
+path's shape (4 slots x 96x96), at the non-pipelined lockstep frame's
+(24 recordings x 4 slots, 96 slots) and on edge cases (flat planes,
+crop rows that are no multiple of 8, planes off a 16-byte boundary, one
+slot, 70,000 slots), timing the two main shapes by CUDA-graph replay
+(device time) and by eager calls. Then it drives two paths at full
+``ModelConfig()`` width with TF32 off, K1's launches counted from 0 just
+before each:
 
 * sequential (``HandTracker.track_sequence``): 32 frames of a synthetic
   scene with the tracked pose fed back into the next frame's crops (one
@@ -18,8 +21,9 @@ from 0 just before each:
 * lockstep (``eval_lib.track_recordings_batched(pipelined=True)``): 24
   recordings of 16 frames in chunks of 8 (one K1 launch of 768 slots a
   chunk), twice more for the spread, stages, a one-chunk trace, K1 at
-  the chunk's own coordinates against its plain version, and the results
-  against the sequential tracker and against the port's CPU run.
+  the chunk's own coordinates against its plain version in both modes,
+  and the results against the sequential tracker and against the port's
+  CPU run.
 
 Prints the card's name and power limit first, one ``{"path": ...}``, one
 ``{"lockstep": ...}`` and one ``{"kernels": [...]}`` line and, last,
@@ -399,8 +403,8 @@ def _probe(x, y, valid_hw):
     import torch
 
     xy = torch.as_tensor(border_coords(valid_hw), device=x.device)
-    x[0, : len(xy)] = xy[:, 0]
-    y[0, : len(xy)] = xy[:, 1]
+    x.view(x.shape[0], -1)[0, : len(xy)] = xy[:, 0]
+    y.view(y.shape[0], -1)[0, : len(xy)] = xy[:, 1]
 
 
 def touched_source_bytes(images, image_idx, xs, ys, valid_hw) -> int:
@@ -412,6 +416,7 @@ def touched_source_bytes(images, image_idx, xs, ys, valid_hw) -> int:
 
     h, w = valid_hw
     _, hp, wp = images.shape
+    xs, ys = xs.reshape(xs.shape[0], -1), ys.reshape(ys.shape[0], -1)
     x0, y0 = torch.floor(xs), torch.floor(ys)
     inside = (xs >= 0) & (x0 + 1 <= w - 1) & (ys >= 0) & (y0 + 1 <= h - 1)
     v = view_index(image_idx, images.shape[0])[:, None].expand_as(xs)
@@ -420,27 +425,36 @@ def touched_source_bytes(images, image_idx, xs, ys, valid_hw) -> int:
     return int(torch.unique(taps).numel()) * images.element_size()
 
 
-def kernel_phase(ts: dict, crop_size) -> dict:
-    """K1 against its plain version on the card at the sequential path's
-    shape (N=4 slots x 96x96) and at the non-pipelined lockstep frame's
-    (24 recordings x 4 slots, N=96)."""
-    import torch
-
-    from absolutetrack_tpu_torch.geometry import camera as cam
+def slot_cameras(ts: dict, t: int, crop_size):
+    """Frame ``t``'s four crop slots from the given pose: their view
+    indices (4,), source cameras and crop cameras (batch 4)."""
     from absolutetrack_tpu_torch.geometry.crop import crop_camera_to_camera
-    from absolutetrack_tpu_torch.ops import warp_kernel
-    from absolutetrack_tpu_torch.ops.resample import _crop_source_coords_planar
     from absolutetrack_tpu_torch.tracker.crop_gen import gen_crop_slots
 
-    dev = ts["frames"].device
+    cams = ts["cameras"]._replace(T_world_from_eye=ts["camera_to_world"][t])
     slots = gen_crop_slots(
-        ts["cameras"], ts["camera_angles"], ts["hand_model"],
-        ts["joint_angles"][0], ts["wrist_transforms"][0], ts["hand_confidences"][0],
+        cams, ts["camera_angles"], ts["hand_model"],
+        ts["joint_angles"][t], ts["wrist_transforms"][t], ts["hand_confidences"][t],
         crop_size,
     )
     idx = slots.view_idx.reshape(-1)
-    src = ts["cameras"].map(lambda a: a[idx])
+    src = cams.map(lambda a: a[idx])
     crop = crop_camera_to_camera(slots.cameras.map(lambda a: a.reshape((4,) + a.shape[2:])), crop_size)
+    return idx, src, crop
+
+
+def kernel_inputs(ts: dict, crop_size) -> dict:
+    """K1's inputs at the sequential path's shape and the non-pipelined
+    lockstep frame's, as (N, h, w) planes on the main path's layout: frame
+    0's four slots (``idx``, ``x4``, ``y4``; slot 3 looks down the source's
+    optical axis) and those slots 24 times, jittered (``idx96``, ...)."""
+    import torch
+
+    from absolutetrack_tpu_torch.geometry import camera as cam
+    from absolutetrack_tpu_torch.ops.resample import _crop_source_coords_planar
+
+    dev = ts["frames"].device
+    idx, src, crop = slot_cameras(ts, 0, crop_size)
     # slot 3: identity source and crop poses, so the crop's centre pixel
     # lies exactly on the source's optical axis (r == 0)
     eye = torch.eye(4, device=dev)
@@ -458,12 +472,29 @@ def kernel_phase(ts: dict, crop_size) -> dict:
     if float(x4[3, axis_px]) != float(src.cx[3]) or float(y4[3, axis_px]) != float(src.cy[3]):
         raise RuntimeError("the on-axis pixel does not map to the principal point")
 
+    # K1 takes (N, h, w) planes on the main path (warp_perspective_crop)
+    x4, y4 = (a.view(4, crop_size[1], crop_size[0]) for a in (x4, y4))
     gen = torch.Generator(device="cpu").manual_seed(1)
     reps = 24
-    jitter = lambda: (20 * torch.rand((reps * 4, 1), generator=gen) - 10).to(dev)  # noqa: E731
-    x96 = (x4.repeat(reps, 1) + jitter()).contiguous()
-    y96 = (y4.repeat(reps, 1) + jitter()).contiguous()
-    idx96 = idx.repeat(reps).contiguous()
+    jitter = lambda: (20 * torch.rand((reps * 4, 1, 1), generator=gen) - 10).to(dev)  # noqa: E731
+    return dict(
+        idx=idx, x4=x4, y4=y4,
+        idx96=idx.repeat(reps).contiguous(),
+        x96=(x4.repeat(reps, 1, 1) + jitter()).contiguous(),
+        y96=(y4.repeat(reps, 1, 1) + jitter()).contiguous(),
+    )
+
+
+def kernel_phase(ts: dict, crop_size) -> dict:
+    """K1 against its plain version on the card, in both row-weight modes,
+    at the sequential path's shape (N=4 slots x 96x96), at the
+    non-pipelined lockstep frame's (24 recordings x 4 slots, N=96) and on
+    ``k1_edge_cases``; K1's times at the two main shapes."""
+    import torch
+
+    dev = ts["frames"].device
+    k = kernel_inputs(ts, crop_size)
+    idx, x4, y4, idx96, x96, y96 = (k[name] for name in ("idx", "x4", "y4", "idx96", "x96", "y96"))
 
     padded_u8 = ts["frames"][0].contiguous()
     unpadded_u8 = padded_u8[:, : SRC_HW[0], : SRC_HW[1]].contiguous()
@@ -476,44 +507,101 @@ def kernel_phase(ts: dict, crop_size) -> dict:
     }
     # out-of-range view indices: a negative one counts from the end once, then all clamp
     idx_out = torch.tensor([-1, N_VIEWS, -N_VIEWS - 2, 2 * N_VIEWS + 1], device=dev)
+    cases = {"n4": (x4, y4, idx), "n4_idx_out": (x4, y4, idx_out), "n96": (x96, y96, idx96)}
+    cases.update(k1_edge_cases(x96, y96, idx96))
     max_err = 0.0
     for name, (images, valid_hw) in sources.items():
-        for xs, ys, ii in ((x4, y4, idx), (x4, y4, idx_out), (x96, y96, idx96)):
-            xs, ys = xs.clone(), ys.clone()
-            _probe(xs, ys, valid_hw or tuple(images.shape[1:]))
-            got = warp_kernel.K1(images, ii, xs, ys, valid_hw)
-            want = warp_kernel.bilinear_sample_plain(images, ii, (xs, ys), valid_hw)
-            torch.cuda.synchronize()
-            if not torch.isfinite(got).all():
-                raise RuntimeError(f"K1 {name}: non-finite output")
-            err = float((got - want).abs().max())
-            if err > K1_TOL:
-                raise RuntimeError(f"K1 {name} N={xs.shape[0]}: max |err| {err} > {K1_TOL}")
-            max_err = max(max_err, err)
+        for case, (xs, ys, ii) in cases.items():
+            xs, ys = _probed(xs, ys, valid_hw or tuple(images.shape[1:]))
+            for int8_rows in (False, True) if images.dtype == torch.uint8 else (False,):
+                err = k1_error(images, ii, xs, ys, valid_hw, int8_rows)
+                if err > K1_TOL:
+                    raise RuntimeError(f"K1 {name} {case} int8_rows={int8_rows}: max |err| {err} > {K1_TOL}")
+                max_err = max(max_err, err)
 
     return dict(
         max_abs_err=max_err,
+        cases=sorted(cases),
         n4=k1_timings(padded_u8, idx, x4, y4),
         n96=k1_timings(padded_u8, idx96, x96, y96),
     )
 
 
+def k1_edge_cases(xs, ys, ii) -> dict:
+    """K1's shapes and layouts off the main path, cut from (N, h, w) planes
+    on the card: flat (N, P) planes (a gather's lanes on consecutive
+    pixels) with P = 9,215 and 97, crop rows not a multiple of the 8-pixel
+    patch (95 x 97), planes 4 bytes past a 16-byte boundary, one slot, and
+    70,000 slots of 8 pixels (past the grid's 65,535 slots in y, where
+    blocks stride over slots; view indices out of range as well)."""
+    import torch
+
+    n = xs.shape[0]
+    fx, fy = xs.reshape(n, -1), ys.reshape(n, -1)
+    many = torch.arange(70_000, device=xs.device)
+    cols = (many[:, None] * 8 + torch.arange(8, device=xs.device)) % fx.numel()
+    return {
+        "flat_p9215": (fx[:, :9215].contiguous(), fy[:, :9215].contiguous(), ii),
+        "flat_p97": (fx[:8, :97].contiguous(), fy[:8, :97].contiguous(), ii[:8]),
+        "rows_95x97": (fx[:, : 95 * 97].reshape(n, 95, 97).contiguous(), fy[:, : 95 * 97].reshape(n, 95, 97).contiguous(), ii),
+        "planes_offset": (at_offset(xs, 4), at_offset(ys, 4), ii),
+        "n1": (xs[:1], ys[:1], ii[:1]),
+        "n70000_p8": (fx.reshape(-1)[cols], fy.reshape(-1)[cols], ii[many % n] - many % 3),
+    }
+
+
+def at_offset(a, byte_offset: int):
+    """A copy of ``a`` whose data starts ``byte_offset`` bytes past a
+    16-byte boundary (the allocator's blocks start on one)."""
+    import torch
+
+    shift = byte_offset // a.element_size()
+    buf = torch.empty(a.numel() + shift, dtype=a.dtype, device=a.device)
+    return buf[shift:].view(a.shape).copy_(a)
+
+
+def _probed(xs, ys, valid_hw):
+    """Copies of the planes, at their alignment, with ``border_coords`` in
+    the first pixels of slot 0 where the slot has room for them."""
+    xs, ys = (at_offset(a, a.data_ptr() % 16) for a in (xs, ys))
+    if xs[0].numel() >= len(border_coords(valid_hw)):
+        _probe(xs, ys, valid_hw)
+    return xs, ys
+
+
+def k1_error(images, ii, xs, ys, valid_hw, int8_rows=False) -> float:
+    """Max |K1 - plain| on one call; raises on a non-finite output."""
+    import torch
+
+    from absolutetrack_tpu_torch.ops import warp_kernel
+
+    got = warp_kernel.K1(images, ii, xs, ys, valid_hw, int8_rows)
+    want = warp_kernel.bilinear_sample_plain(images, ii, (xs, ys), valid_hw, int8_rows)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"K1: non-finite output at N={xs.shape[0]} int8_rows={int8_rows}")
+    return float((got - want).abs().max())
+
+
 def k1_timings(images, ii, xs, ys, iters: int = 100) -> dict:
-    """K1's device time at one shape (CUDA-graph replay), beside its bound,
-    its plain version's time and ``grid_sample``'s, and the eager calls'."""
+    """K1's device time at one shape (CUDA-graph replay) in both row-weight
+    modes, beside its bound, its plain version's time and ``grid_sample``'s,
+    and the eager calls'."""
     import torch
     from torch.nn import functional as F
 
     from absolutetrack_tpu_torch.ops import warp_kernel
 
-    n, p = xs.shape
+    n, p = xs.shape[0], xs[0].numel()
     h, w = SRC_HW
     k1 = lambda: warp_kernel.K1(images, ii, xs, ys, SRC_HW)  # noqa: E731
+    k1_int8 = lambda: warp_kernel.K1(images, ii, xs, ys, SRC_HW, True)  # noqa: E731
     plain = lambda: warp_kernel.bilinear_sample_plain(images, ii, (xs, ys), SRC_HW)  # noqa: E731
     # yardstick only: grid_sample blends border taps with zeros, so it is
     # not the same function at the border; the port never calls it
     lib_in = images[ii, :h, :w].float()[:, None].contiguous()
-    grid = torch.stack([xs / (w - 1) * 2 - 1, ys / (h - 1) * 2 - 1], -1)[:, None].contiguous()
+    gx, gy = xs.reshape(n, 1, p), ys.reshape(n, 1, p)
+    grid = torch.stack([gx / (w - 1) * 2 - 1, gy / (h - 1) * 2 - 1], -1).contiguous()
     library = lambda: F.grid_sample(  # noqa: E731
         lib_in, grid, mode="bilinear", padding_mode="zeros", align_corners=True
     )
@@ -527,7 +615,7 @@ def k1_timings(images, ii, xs, ys, iters: int = 100) -> dict:
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS
     few = max(iters // 5, 2)
     out = dict(
-        ms=_device_ms(k1, iters), plain_ms=_device_ms(plain, few),
+        ms=_device_ms(k1, iters), int8_ms=_device_ms(k1_int8, iters), plain_ms=_device_ms(plain, few),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=_device_ms(library, iters),
@@ -803,7 +891,7 @@ def lockstep_phase(seed: int) -> dict:
         run(max_frames=chunk)
     finally:
         warp_kernel.K1 = recorder.kernel
-    images, ii, xs, ys, valid_hw = recorder.calls[0]
+    images, ii, xs, ys, valid_hw, _ = recorder.calls[0]
     del recorder
     errs = {}
     for name, (idx, x, y) in {
@@ -811,11 +899,8 @@ def lockstep_phase(seed: int) -> dict:
         # 1,024 slots (32 recordings), where the TPU cuts the call into slabs
         "n1024": tuple(torch.cat([a, a[:256]]).contiguous() for a in (ii, xs, ys)),
     }.items():
-        got = warp_kernel.K1(images, idx, x, y, valid_hw)
-        want = warp_kernel.bilinear_sample_plain(images, idx, (x, y), valid_hw)
-        torch.cuda.synchronize()
-        errs[name] = float((got - want).abs().max())
-        if not torch.isfinite(got).all() or errs[name] > K1_TOL:
+        errs[name] = max(k1_error(images, idx, x, y, valid_hw, int8_rows) for int8_rows in (False, True))
+        if errs[name] > K1_TOL:
             raise RuntimeError(f"K1 at {name}: max |err| {errs[name]} > {K1_TOL}")
     k1 = dict(k1_timings(images, ii, xs, ys, iters=20), max_abs_err=errs["n768"], n1024_max_abs_err=errs["n1024"])
     del images, ii, xs, ys
@@ -903,11 +988,13 @@ def main(seed: int = 0) -> int:
         "source": "absolutetrack_tpu_torch/csrc/bilinear_sample.cu",
         "replaces": "absolutetrack_tpu/ops/pallas_warp.py:224 (_fused_warp_kernel); "
                     ":195 (_narrow_warp_kernel); :281 (_overflow_warp_kernel); "
-                    ":307 (_banded_warp_kernel); :322 (_covering_warp_kernel)",
+                    ":307 (_banded_warp_kernel); :322 (_covering_warp_kernel); "
+                    "pallas_warp.py:127-173 (int8 row mix)",
         "launches": path["k1_launches"] + lockstep["k1_launches"],
         "launches_by_path": {"sequential": path["k1_launches"], "lockstep": lockstep["k1_launches"]},
         "max_abs_err": max(k["max_abs_err"], n768["max_abs_err"], n768["n1024_max_abs_err"]),
         "tolerance": K1_TOL,
+        "checked": "both row-weight modes (int8 on uint8 views), every dtype, cases " + ", ".join(k["cases"]),
         **k["n4"],
         "shape": "N=4 P=9216 uint8 512x640 (valid 480x636): the sequential path",
         "n96": dict(k["n96"], shape="N=96: the non-pipelined lockstep frame"),

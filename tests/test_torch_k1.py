@@ -5,12 +5,16 @@ the card but without JAX (skip the JAX conftest there):
 
     python -m pytest tests/test_torch_k1.py --noconftest -q
 
-On the CPU the ``cuda`` test skips; the rest checks the build command, the
-dispatch on the tensors' device and the wrapper's input checks. K1 must
-match the plain version within ``chip_smoke.K1_TOL`` (1e-3 on the 0..255
-scale): both round the same f32 operations in the same order.
+On the CPU the ``cuda`` tests skip; the rest checks the build command,
+the C signature, the arguments the wrapper passes (row-weight mode, the
+crop row width that sets K1's layout), the dispatch on the tensors' device
+and the wrapper's input checks. K1 must match the plain version within
+``chip_smoke.K1_TOL`` (1e-3 on the 0..255 scale) in both row-weight modes:
+both round the same operations in the same order.
 """
 
+import ctypes
+import re
 from pathlib import Path
 
 import numpy as np
@@ -40,7 +44,7 @@ def test_source_names_the_replaced_tpu_kernels():
     assert 'extern "C" int k1_bilinear_sample(' in text
     for replaced in (
         "_fused_warp_kernel", "_narrow_warp_kernel", "_overflow_warp_kernel",
-        "_banded_warp_kernel", "_covering_warp_kernel",
+        "_banded_warp_kernel", "_covering_warp_kernel", "_tile_contrib's int8 row mix",
     ):
         assert replaced in text
 
@@ -63,6 +67,47 @@ def test_k1_refuses_cpu_tensors():
             torch.ones(1, 3), torch.ones(1, 3),
         )
     assert warp_kernel.K1.launches == before
+
+
+def test_argtypes_follow_the_c_signature():
+    """``ARGTYPES`` has one entry per parameter of ``k1_bilinear_sample``, of
+    the matching width: a pointer or the stream as c_void_p, int as c_int,
+    int64_t as c_int64."""
+    decl = re.search(r'extern "C" int k1_bilinear_sample\((.*?)\)\s*\{', warp_kernel.SOURCE.read_text(), re.S)
+    params = [" ".join(p.split()) for p in decl.group(1).split(",")]
+    kinds = [
+        ctypes.c_void_p if "*" in p else ctypes.c_int64 if p.startswith("int64_t") else ctypes.c_int
+        for p in params
+    ]
+    assert [p.split()[-1].lstrip("*") for p in params][:4] == ["src", "src_dtype", "int8_rows", "row_px"]
+    assert kinds == warp_kernel.ARGTYPES
+
+
+@pytest.mark.parametrize("shape, row_px", [((3, 96, 96), 96), ((3, 95, 97), 97), ((3, 9216), 8), ((3, 97), 8)])
+@pytest.mark.parametrize("dtype, int8_rows", [(torch.uint8, False), (torch.uint8, True), (torch.bfloat16, False)])
+def test_k1_arguments(shape, row_px, dtype, int8_rows):
+    """The call the wrapper makes: dtype code, row-weight mode, the crop
+    row width (W of (N, H, W) planes, 8 for flat planes), strides and the
+    (N, P) of the planes; planes off a 16-byte boundary are taken as they are."""
+    images = torch.zeros((5, 12, 20), dtype=dtype)
+    x = chip_smoke.at_offset(torch.zeros(shape), 4)
+    y, out = torch.zeros(shape), torch.empty(shape)
+    idx = torch.zeros(3, dtype=torch.int64)
+    warp_kernel._check_cuda_inputs(images, idx, x, y, (10, 18), int8_rows)
+    args = warp_kernel.k1_arguments(images, idx, x, y, out, (10, 18), int8_rows, 1234)
+    assert len(args) == len(warp_kernel.ARGTYPES)
+    assert args[:4] == (images.data_ptr(), {torch.uint8: 0, torch.bfloat16: 2}[dtype], int(int8_rows), row_px)
+    assert args[4:8] == (idx.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr())
+    assert args[8:] == (5, 12 * 20, 20, 10, 18, 3, x[0].numel(), 1234)
+    assert warp_kernel.row_px(x) == row_px
+
+
+def test_int8_rows_need_uint8_images():
+    args = dict(image_idx=torch.zeros(2, dtype=torch.int64), x=torch.zeros((2, 6)), y=torch.zeros((2, 6)), src_valid_hw=None)
+    warp_kernel._check_cuda_inputs(torch.zeros((1, 8, 8), dtype=torch.uint8), int8_rows=True, **args)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="int8 rows need uint8"):
+            warp_kernel._check_cuda_inputs(torch.zeros((1, 8, 8), dtype=dtype), int8_rows=True, **args)
 
 
 def test_reset_counts_clears_launches_and_shapes():
@@ -92,6 +137,7 @@ def test_other_devices_raise():
         (dict(x=torch.zeros((2, 6), dtype=torch.float64), y=torch.zeros((2, 6), dtype=torch.float64)), "float32"),
         (dict(x=torch.zeros((2, 12))[:, ::2]), "contiguous"),
         (dict(y=torch.zeros((2, 5))), "planes"),
+        (dict(x=torch.zeros((2, 1, 2, 3)), y=torch.zeros((2, 1, 2, 3))), "planes"),
         (dict(image_idx=torch.zeros(2, dtype=torch.int32)), "int64"),
         (dict(image_idx=torch.zeros(3, dtype=torch.int64)), "int64"),
         (dict(src_valid_hw=(9, 8)), "outside"),
@@ -120,10 +166,17 @@ def test_bound_counts_each_touched_source_byte_once():
     assert chip_smoke.touched_source_bytes(imgs.to(torch.uint8), torch.tensor([1, -1]), x, y, (6, 9)) == 6
 
 
+def _card_modes(dtype):
+    """The row-weight modes of a source type: int8 rows for uint8 only."""
+    return (False, True) if dtype == torch.uint8 else (False,)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("padded", [False, True])
 def test_k1_matches_plain_on_the_card(cuda_device, dtype, padded):
+    """Through ``bilinear_sample``, flat and crop-shaped planes, in every
+    row-weight mode of the source type (the switch leaves f32 and bf16 alone)."""
     rng = np.random.default_rng(7)
     hw = chip_smoke.PAD_HW if padded else chip_smoke.SRC_HW
     imgs = torch.from_numpy(rng.integers(0, 256, (4,) + hw, dtype=np.uint8)).to(dtype)
@@ -132,15 +185,39 @@ def test_k1_matches_plain_on_the_card(cuda_device, dtype, padded):
     y = rng.uniform(-3, hw[0] + 2, (4, 9216)).astype(np.float32)
     cases = chip_smoke.border_coords(chip_smoke.SRC_HW)
     x[0, : len(cases)], y[0, : len(cases)] = cases[:, 0], cases[:, 1]
-    coords = (torch.from_numpy(x), torch.from_numpy(y))
-    # in range, then out of range (a negative index counts from the end once, then clamps)
-    for idx in (torch.tensor([2, 0, 3, 1]), torch.tensor([-1, 4, -6, 9])):
-        want = warp_kernel.bilinear_sample(imgs, idx, coords, valid_hw)
-        before, before_shape = warp_kernel.K1.launches, warp_kernel.K1.shapes[(4, 9216)]
-        got = warp_kernel.bilinear_sample(
-            imgs.to(cuda_device), idx.to(cuda_device), tuple(c.to(cuda_device) for c in coords), valid_hw
-        )
-        torch.cuda.synchronize()
-        assert warp_kernel.K1.launches == before + 1
-        assert warp_kernel.K1.shapes[(4, 9216)] == before_shape + 1
-        assert float((got.cpu() - want).abs().max()) <= chip_smoke.K1_TOL
+    for shape in ((4, 9216), (4, 96, 96)):
+        coords = (torch.from_numpy(x).view(shape), torch.from_numpy(y).view(shape))
+        # in range, then out of range (a negative index counts from the end once, then clamps)
+        for idx in (torch.tensor([2, 0, 3, 1]), torch.tensor([-1, 4, -6, 9])):
+            for int8 in (False, True):
+                prev = warp_kernel.set_int8_window(int8)
+                try:
+                    want = warp_kernel.bilinear_sample(imgs, idx, coords, valid_hw)
+                    before, before_shape = warp_kernel.K1.launches, warp_kernel.K1.shapes[(4, 9216)]
+                    got = warp_kernel.bilinear_sample(
+                        imgs.to(cuda_device), idx.to(cuda_device), tuple(c.to(cuda_device) for c in coords), valid_hw
+                    )
+                finally:
+                    warp_kernel.set_int8_window(prev)
+                torch.cuda.synchronize()
+                assert warp_kernel.K1.launches == before + 1
+                assert warp_kernel.K1.shapes[(4, 9216)] == before_shape + 1
+                assert got.shape == shape
+                assert float((got.cpu() - want).abs().max()) <= chip_smoke.K1_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["flat_p9215", "flat_p97", "rows_95x97", "planes_offset", "n1", "n70000_p8"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32, torch.bfloat16])
+def test_k1_edge_cases_on_the_card(cuda_device, case, dtype):
+    """P not a multiple of 4 or 8, crop rows not a multiple of the 8-pixel
+    patch, planes 4 bytes past a 16-byte boundary, one slot, and 70,000
+    slots (past the grid's 65,535 in y), against the plain version on the card."""
+    rng = np.random.default_rng(11)
+    imgs = torch.from_numpy(rng.integers(0, 256, (4,) + chip_smoke.PAD_HW, dtype=np.uint8)).to(cuda_device, dtype)
+    x = torch.from_numpy(rng.uniform(-3, 642, (96, 96, 96)).astype(np.float32)).to(cuda_device)
+    y = torch.from_numpy(rng.uniform(-3, 514, (96, 96, 96)).astype(np.float32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(-5, 9, 96)).to(cuda_device)
+    xs, ys, ii = chip_smoke.k1_edge_cases(x, y, idx)[case]
+    for int8 in _card_modes(dtype):
+        assert chip_smoke.k1_error(imgs, ii, xs, ys, chip_smoke.SRC_HW, int8) <= chip_smoke.K1_TOL

@@ -260,3 +260,95 @@ class TestWarpPerspectiveCrop:
         assert got.shape == (4, CROP[1], CROP[0])
         assert float(got.amax()) > 0  # the crops land on the views
         np.testing.assert_allclose(np.asarray(want), got.numpy(), atol=0.05)
+
+
+# -- the int8 row-weight mode (pallas_warp.py:127-173) ----------------------
+#
+# Tolerance of the port's int8 rows against the Pallas kernels' in interpret
+# mode: <= 1e-3 on >= 99.9% of pixels and <= 2.01 everywhere. Both quantize
+# the same row weights to round(127 w) and sum exactly, but Pallas forms a
+# weight as 1 - |r - (y - base)| in window coordinates, which can differ
+# from the port's wy by one ulp; at a near-tie of 127 w that flips q by one
+# step, one row weight off by 1/127 against values <= 255.
+
+
+def _assert_int8_close(want, got):
+    err = np.abs(np.asarray(want) - np.asarray(got))
+    assert err.max() <= 2.01
+    assert np.mean(err <= 1e-3) >= 0.999
+
+
+def _pallas_int8(monkeypatch, *args, **kwargs):
+    monkeypatch.setattr(pallas_warp, "_INT8_WINDOW", True)
+    try:
+        return np.asarray(bilinear_sample_mxu(*args, interpret=True, **kwargs))
+    finally:
+        monkeypatch.setattr(pallas_warp, "_INT8_WINDOW", False)
+
+
+def _port_int8(imgs, idx, x, y, valid_hw=None):
+    prev = warp_kernel.set_int8_window(True)
+    try:
+        return warp_kernel.bilinear_sample(torch.from_numpy(imgs), torch.from_numpy(idx), (torch.from_numpy(x), torch.from_numpy(y)), valid_hw).numpy()
+    finally:
+        warp_kernel.set_int8_window(prev)
+
+
+def test_int8_rows_match_the_pallas_int8_case(monkeypatch):
+    """``tests/test_pallas_warp.py::test_int8_window_variant``'s case, with
+    ``crop_hw`` (pass A) and without it (covering)."""
+    rng = np.random.default_rng(33)
+    imgs = rng.integers(0, 256, (2, 480, 636), dtype=np.uint8)
+    idx = np.array([1, 0], np.int32)
+    gy, gx = np.mgrid[0:96, 0:96]
+    y = (120 + gy[None] * 2.2 + rng.uniform(0, 1, (2, 96, 96))).reshape(2, -1).astype(np.float32)
+    x = (300 + gx[None] * 2.4 + rng.uniform(0, 1, (2, 96, 96))).reshape(2, -1).astype(np.float32)
+    got = _port_int8(imgs, idx.astype(np.int64), x, y)
+    f32 = warp_kernel.bilinear_sample(torch.from_numpy(imgs), torch.from_numpy(idx.astype(np.int64)), (torch.from_numpy(x), torch.from_numpy(y))).numpy()
+    for crop_hw in ((96, 96), None):
+        want = _pallas_int8(monkeypatch, jnp.asarray(imgs), jnp.asarray(idx), (jnp.asarray(x), jnp.asarray(y)), crop_hw=crop_hw)
+        _assert_int8_close(want, got)
+    # the int8 rows were taken: they differ from the f32 rows, within the quantization
+    assert np.abs(got - f32).max() > 0.1
+    np.testing.assert_allclose(got, f32, atol=2.01)
+
+
+@pytest.mark.parametrize("route", ["a_fused", "b_narrow", "c_overflow", "d_banded", "e_covering"])
+def test_int8_rows_match_each_pallas_route(route, monkeypatch):
+    """The int8 rows on each route of the Pallas dispatch (the coordinates
+    of ``test_plain_sampler_matches_each_pallas_route``, which asserts the
+    routes)."""
+    rng = np.random.default_rng(12)
+    imgs = rng.integers(0, 256, (2,) + chip_smoke.SRC_HW, dtype=np.uint8)
+    x, y = _route_coords(route, rng)
+    idx = np.array([1, 0])
+    if route == "c_overflow":
+        monkeypatch.setattr(pallas_warp, "_TWOPASS_MIN_TILES", 0)
+    crop_hw = None if route == "e_covering" else (96, 96)
+    want = _pallas_int8(monkeypatch, jnp.asarray(imgs), jnp.asarray(idx), (jnp.asarray(x), jnp.asarray(y)), crop_hw=crop_hw)
+    _assert_int8_close(want, _port_int8(imgs, idx, x, y))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_switch_leaves_f32_and_bf16_sources_alone(dtype):
+    """Only uint8 sources take the int8 rows (``tests/test_pallas_warp.py:142-153``);
+    ``set_int8_window`` returns the value it replaces."""
+    rng = np.random.default_rng(4)
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, 40, 50), dtype=np.uint8))
+    x = torch.from_numpy(rng.uniform(-2, 51, (2, 300)).astype(np.float32))
+    y = torch.from_numpy(rng.uniform(-2, 41, (2, 300)).astype(np.float32))
+    idx = torch.tensor([1, 0])
+    off = warp_kernel.bilinear_sample(imgs.to(dtype), idx, (x, y))
+    u8_off = warp_kernel.bilinear_sample(imgs, idx, (x, y))
+    assert warp_kernel.set_int8_window(True) is False
+    try:
+        assert warp_kernel.set_int8_window(True) is True
+        on = warp_kernel.bilinear_sample(imgs.to(dtype), idx, (x, y))
+        u8_on = warp_kernel.bilinear_sample(imgs, idx, (x, y))
+    finally:
+        assert warp_kernel.set_int8_window(False) is True
+    assert warp_kernel.set_int8_window(False) is False
+    assert torch.equal(on, off)
+    assert not torch.equal(u8_on, u8_off)
+    with pytest.raises(ValueError, match="uint8"):
+        warp_kernel.bilinear_sample_plain(imgs.to(dtype), idx, (x, y), int8_rows=True)
