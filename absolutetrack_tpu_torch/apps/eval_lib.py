@@ -8,14 +8,16 @@ chunks; ``track_recordings_batched`` runs R recordings in lockstep. With
 ``track_chunk_eval[_batched]`` call: crops, warp and trunk batched over the
 chunk, the ConvRNN tail stepped per frame. With ``pipelined=False`` the
 chunk runs the per-frame step. Device results stay on the device until
-every chunk has been issued. The frame sources, the CLI apps and sharding
-over several cards (``mesh=``) are not ported yet.
+every chunk has been issued. ``frames_for`` picks a recording's frames
+(its video, else a synthetic renderer). The CLI apps and sharding over
+several cards (``mesh=``) are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 from typing import Iterable, List, Optional
 
 import numpy as np
@@ -29,7 +31,12 @@ from ..models.umetrack import UmeTrackModel
 from ..tracker.batched import BatchedTracker
 from ..tracker.pipelined import StageHook, stack_results, track_chunk_eval, track_chunk_eval_batched
 from ..tracker.tracker import HandTracker, TrackerConfig
-from ..tracker.video_data import HandPoseLabels, gt_landmark_sequence  # noqa: F401  (re-export)
+from ..tracker.video_data import (  # noqa: F401  (gt_landmark_sequence: re-export)
+    HandPoseLabels,
+    VideoFrameSource,
+    gt_landmark_sequence,
+    make_frame_source,
+)
 
 NUM_HANDS = 2
 NUM_LANDMARKS = 21
@@ -38,7 +45,8 @@ NUM_LANDMARKS = 21
 def build_model(
     checkpoint: Optional[str] = None, cfg: ModelConfig = ModelConfig(), seed: int = 0, device=None
 ) -> UmeTrackModel:
-    """The network with seeded random weights, on ``cuda`` unless ``device`` is given."""
+    """The network with seeded random weights, on ``cuda`` unless ``device``
+    is given; ``cfg=ModelConfig.serving()`` gives the bf16 serving trunk."""
     if checkpoint:
         raise NotImplementedError("loading a checkpoint is not ported yet")
     return UmeTrackModel(cfg, device=device, generator=torch.Generator().manual_seed(seed))
@@ -376,3 +384,11 @@ def track_recordings_batched(
         )
         for ri in range(r)
     ]
+
+
+def frames_for(labels: HandPoseLabels, video_path: Optional[str], renderer: str = "mesh"):
+    """Decoded frames when the video exists, synthetic frames otherwise
+    (``renderer``: ``mesh``, the skinned-mesh silhouettes, or ``blobs``)."""
+    if video_path and os.path.exists(video_path):
+        return VideoFrameSource(video_path, labels.num_views)
+    return make_frame_source(labels, renderer=renderer)

@@ -13,11 +13,19 @@
 // slabs to keep its scalar memory small. Hopper gathers, so K1 has no
 // window to overflow and no planner: one launch for any N.
 //
-// It also carries the int8 row-weight mode of the shared body of those
-// kernels, _tile_contrib's int8 row mix (pallas_warp.py:127-173, switched
-// by set_int8_window): for uint8 sources the two row weights quantize to
-// q = round(127 w), rounded half to even, the row mix is an exact int32
-// sum, and one multiply by 1/127 returns to f32 before the column mix.
+// It also carries the two other number formats of the shared body of
+// those kernels, _tile_contrib (pallas_warp.py:143-192):
+// * _tile_contrib's int8 row mix (pallas_warp.py:127-173, switched by
+//   set_int8_window): for uint8 sources the two row weights quantize to
+//   q = round(127 w), rounded half to even, the row mix is an exact int32
+//   sum, and one multiply by 1/127 returns to f32 before the column mix.
+// * _tile_contrib's bf16 row mix (pallas_warp.py:174-186, how every Pallas
+//   kernel samples by default): the row weights 1 - wy and 1 - |1 - wy|
+//   (the hat function's) and the four taps round to bf16 (f32 taps only:
+//   uint8 and bf16 taps are exact in bf16), each bf16 x bf16
+//   product is exact in f32, so each row's two terms sum with one f32
+//   rounding, as the matrix unit's f32 accumulation of one nonzero pair
+//   does; the column mix stays f32 (:188-192).
 //
 // What bounds it. Each output pixel moves 8 B of coordinates in and 4 B
 // out (85 MB at the 768-slot lockstep chunk: the byte bound), and its
@@ -62,6 +70,7 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libk1.so bilinear_sample.cu
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,21 +84,31 @@ constexpr int kMaxPixels = 4;  // pixels a thread, kPatchH rows apart
 constexpr int64_t kFewPixels = 1 << 20;  // launches below this take 2 pixels a thread
 constexpr int kMaxGridY = 65535;
 constexpr float kInv127 = 1.0f / 127.0f;  // f32(1/127), as the Pallas body's (1.0 / 127.0)
+constexpr int kRowsF32 = 0, kRowsInt8 = 1, kRowsBf16 = 2;  // row-weight modes
 
-// Source element types: the raw value a tap loads, and its f32 value.
+// f32 rounded to bf16 (nearest even), back in f32
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Source element types: the raw value a tap loads, its f32 value, and its
+// value rounded to bf16 (exact for uint8 and bf16, so only f32 rounds).
 struct U8 {
   using Raw = uint8_t;
   static __device__ __forceinline__ float value(Raw v) { return (float)v; }
+  static __device__ __forceinline__ float bf16_value(Raw v) { return (float)v; }
 };
 struct F32 {
   using Raw = float;
   static __device__ __forceinline__ float value(Raw v) { return v; }
+  static __device__ __forceinline__ float bf16_value(Raw v) { return bf16_round(v); }
 };
 struct BF16 {  // the bf16 bit pattern; its f32 value is exact
   using Raw = uint16_t;
   static __device__ __forceinline__ float value(Raw v) {
     return __uint_as_float((uint32_t)v << 16);
   }
+  static __device__ __forceinline__ float bf16_value(Raw v) { return value(v); }
 };
 
 struct Args {
@@ -103,7 +122,7 @@ struct Args {
   int row_px, patches_x;     // pixels in a crop row; patches across a row
 };
 
-template <typename S, bool kInt8, int kPixels>
+template <typename S, int kRows, int kPixels>
 __global__ void __launch_bounds__(kThreads)
 bilinear_sample_kernel(const typename S::Raw* __restrict__ src, Args a) {
   using Raw = typename S::Raw;
@@ -168,7 +187,7 @@ bilinear_sample_kernel(const typename S::Raw* __restrict__ src, Args a) {
       const float ax = __fsub_rn(1.f, wx[k]);
       const float ay = __fsub_rn(1.f, wy[k]);
       float acc;
-      if constexpr (kInt8) {
+      if constexpr (kRows == kRowsInt8) {
         // the int8 row mix: q = round(127 w), half to even; the int32
         // sums are exact (an invalid pixel's weights are masked below)
         const int q0 = __float2int_rn(__fmul_rn(ay, 127.f));
@@ -176,6 +195,16 @@ bilinear_sample_kernel(const typename S::Raw* __restrict__ src, Args a) {
         const float c0 = __fmul_rn((float)(q0 * (int)t00[k] + q1 * (int)t10[k]), kInv127);
         const float c1 = __fmul_rn((float)(q0 * (int)t01[k] + q1 * (int)t11[k]), kInv127);
         acc = __fadd_rn(__fmul_rn(c0, ax), __fmul_rn(c1, wx[k]));
+      } else if constexpr (kRows == kRowsBf16) {
+        // the bf16 row mix. The second tap's hat weight is 1 - |1 - w|, as
+        // the Pallas body forms it: not w where 1 - w rounds (coordinates
+        // in [0, 1)). Products of bf16 values are exact in f32.
+        const float r0 = bf16_round(ay), r1 = bf16_round(__fsub_rn(1.f, ay));
+        const float g00 = S::bf16_value(t00[k]), g01 = S::bf16_value(t01[k]);
+        const float g10 = S::bf16_value(t10[k]), g11 = S::bf16_value(t11[k]);
+        const float c0 = __fadd_rn(__fmul_rn(r0, g00), __fmul_rn(r1, g10));
+        const float c1 = __fadd_rn(__fmul_rn(r0, g01), __fmul_rn(r1, g11));
+        acc = __fadd_rn(__fmul_rn(c0, ax), __fmul_rn(c1, __fsub_rn(1.f, ax)));
       } else {
         const float f00 = S::value(t00[k]), f01 = S::value(t01[k]);
         const float f10 = S::value(t10[k]), f11 = S::value(t11[k]);
@@ -190,41 +219,49 @@ bilinear_sample_kernel(const typename S::Raw* __restrict__ src, Args a) {
   }
 }
 
-template <typename S, bool kInt8, int kPixels>
+template <typename S, int kRows, int kPixels>
 int launch_with(const void* src, const Args& a, cudaStream_t stream) {
   const int64_t rows = (a.p + a.row_px - 1) / a.row_px;
   const int64_t warp_rows = kPatchH * kPixels;
   const int64_t patches = (int64_t)a.patches_x * ((rows + warp_rows - 1) / warp_rows);
   const dim3 grid((unsigned)((patches + kWarps - 1) / kWarps),
                   (unsigned)(a.n < kMaxGridY ? a.n : kMaxGridY));
-  bilinear_sample_kernel<S, kInt8, kPixels><<<grid, kThreads, 0, stream>>>(
+  bilinear_sample_kernel<S, kRows, kPixels><<<grid, kThreads, 0, stream>>>(
       static_cast<const typename S::Raw*>(src), a);
   return (int)cudaGetLastError();
 }
 
-template <typename S, bool kInt8>
+template <typename S, int kRows>
 int launch(const void* src, const Args& a, cudaStream_t stream) {
-  return a.n * a.p < kFewPixels ? launch_with<S, kInt8, 2>(src, a, stream)
-                                : launch_with<S, kInt8, kMaxPixels>(src, a, stream);
+  return a.n * a.p < kFewPixels ? launch_with<S, kRows, 2>(src, a, stream)
+                                : launch_with<S, kRows, kMaxPixels>(src, a, stream);
+}
+
+template <typename S>
+int launch_rows(const void* src, int row_mode, const Args& a, cudaStream_t stream) {
+  return row_mode == kRowsBf16 ? launch<S, kRowsBf16>(src, a, stream)
+                               : launch<S, kRowsF32>(src, a, stream);
 }
 
 }  // namespace
 
-// src_dtype: 0 = uint8, 1 = float32, 2 = bfloat16. int8_rows: 1 for the
-// int8 row-weight mode (uint8 only). row_px: the pixels of a crop row, the
-// layout of each slot's P pixels (row-major); it changes the order in
-// which K1 visits pixels, never a result.
+// src_dtype: 0 = uint8, 1 = float32, 2 = bfloat16. row_mode: 0 = f32 row
+// weights, 1 = int8 (uint8 only), 2 = bf16. row_px: the pixels of a crop
+// row, the layout of each slot's P pixels (row-major); it changes the
+// order in which K1 visits pixels, never a result.
 // Returns the cudaError_t of the launch (0 on success), or 1000 for an
 // unknown dtype, 1001 for int8 rows on a source that is not uint8, 1002
-// for a shape outside 32-bit indices within a slot or a view.
-extern "C" int k1_bilinear_sample(const void* src, int src_dtype, int int8_rows,
+// for a shape outside 32-bit indices within a slot or a view, 1003 for an
+// unknown row-weight mode.
+extern "C" int k1_bilinear_sample(const void* src, int src_dtype, int row_mode,
                                   int row_px, const int64_t* image_idx,
                                   const float* xs, const float* ys, float* out,
                                   int n_views, int64_t view_stride,
                                   int row_stride, int valid_h, int valid_w,
                                   int64_t n, int64_t p, void* stream) {
   if (src_dtype < 0 || src_dtype > 2) return 1000;
-  if (int8_rows && src_dtype != 0) return 1001;
+  if (row_mode < kRowsF32 || row_mode > kRowsBf16) return 1003;
+  if (row_mode == kRowsInt8 && src_dtype != 0) return 1001;
   // a block's last warps may sit up to kWarps patch rows past the slot
   if (row_px < 1 || p + (int64_t)(kWarps + 3) * kPatchH * kMaxPixels * row_px > INT32_MAX ||
       view_stride > INT32_MAX)
@@ -236,10 +273,11 @@ extern "C" int k1_bilinear_sample(const void* src, int src_dtype, int int8_rows,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (src_dtype) {
     case 0:
-      return int8_rows ? launch<U8, true>(src, a, s) : launch<U8, false>(src, a, s);
+      return row_mode == kRowsInt8 ? launch<U8, kRowsInt8>(src, a, s)
+                                   : launch_rows<U8>(src, row_mode, a, s);
     case 1:
-      return launch<F32, false>(src, a, s);
+      return launch_rows<F32>(src, row_mode, a, s);
     default:
-      return launch<BF16, false>(src, a, s);
+      return launch_rows<BF16>(src, row_mode, a, s);
   }
 }

@@ -3,8 +3,8 @@
 Conventions as in the JAX package: ``v`` eye-space 3D, ``p = project(v)``,
 ``q = distort(p)``, window ``w = q * f + c``. Points are shaped
 ``cam_batch + (N, 2|3)``; every function takes any camera batch shape
-(one rig ``(V,)``, or ``(R, V)`` for R recordings). ``undistort`` and
-``window_to_eye`` serve only the 2D-keypoint path and are not ported yet.
+(one rig ``(V,)``, or ``(R, V)`` for R recordings). The inverse chain
+(``window_to_eye``: ``undistort``, ``unproject``) serves the 2D-keypoint path.
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ from . import affine
 
 PINHOLE = "pinhole"
 FISHEYE62 = "fisheye62"
+
+_UNDISTORT_ITERS = 5  # fixed-point iterations, as the reference's
 
 
 class Camera(NamedTuple):
@@ -98,6 +100,20 @@ def project(v: torch.Tensor, kind: str, eps: float = 2.0**-128) -> torch.Tensor:
     raise ValueError(f"unknown projection kind {kind!r}")
 
 
+def unproject(p: torch.Tensor, kind: str) -> torch.Tensor:
+    """Normalized 2D -> unit-length eye-space 3D direction: pinhole
+    normalises (x, y, 1); fisheye62 gives (u sinc(r), v sinc(r), cos(r)),
+    with ``sinc(r / pi) == sin(r) / r``."""
+    if kind == PINHOLE:
+        return affine.normalize(torch.cat([p, torch.ones_like(p[..., :1])], dim=-1))
+    if kind == FISHEYE62:
+        u, v = p.unbind(-1)
+        r = torch.sqrt(u * u + v * v)
+        s = torch.sinc(r / math.pi)
+        return torch.stack([u * s, v * s, torch.cos(r)], dim=-1)
+    raise ValueError(f"unknown projection kind {kind!r}")
+
+
 def distort(coeffs: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Fisheye62 forward distortion: 6 radial + 2 tangential terms."""
     k1, k2, k3, k4, p1, p2, k5, k6 = coeffs.unbind(-1)
@@ -115,6 +131,21 @@ def distort(coeffs: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     x_out = x + 2 * p2 * xy + p1 * (rr + 2 * x2)
     y_out = y + 2 * p1 * xy + p2 * (rr + 2 * y2)
     return torch.stack([x_out, y_out], dim=-1)
+
+
+def undistort(coeffs: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Radial-only fisheye62 undistortion: 5 fixed-point iterations, each
+    dividing the distorted point by the radial factor at the current
+    estimate; the tangential terms are ignored, as the reference's."""
+    k1, k2, k3, k4, _p1, _p2, k5, k6 = coeffs.unbind(-1)
+    x_d, y_d = q.unbind(-1)
+    x_u, y_u = x_d, y_d
+    for _ in range(_UNDISTORT_ITERS):
+        r2 = x_u * x_u + y_u * y_u
+        radial = 1 + k1 * r2 + k2 * r2**2 + k3 * r2**3 + k4 * r2**4 + k5 * r2**5 + k6 * r2**6
+        x_u = x_d / radial
+        y_u = y_d / radial
+    return torch.stack([x_u, y_u], dim=-1)
 
 
 def world_to_eye(cam: Camera, v: torch.Tensor) -> torch.Tensor:
@@ -142,8 +173,41 @@ def eye_to_window(cam: Camera, v: torch.Tensor, kind: str) -> torch.Tensor:
     return q * f + c
 
 
+def window_to_eye(cam: Camera, w: torch.Tensor, kind: str) -> torch.Tensor:
+    """Window coords -> unit-length eye ray: unproject(undistort((w - c) / f));
+    camera fields gain one trailing axis, as in ``eye_to_window``."""
+    f = torch.stack([cam.fx[..., None], cam.fy[..., None]], dim=-1)
+    c = torch.stack([cam.cx[..., None], cam.cy[..., None]], dim=-1)
+    return unproject(undistort(cam.coeffs[..., None, :], (w - c) / f), kind)
+
+
 def world_to_window(cam: Camera, v: torch.Tensor, kind: str) -> torch.Tensor:
     return eye_to_window(cam, world_to_eye(cam, v), kind)
+
+
+def crop(
+    cam: Camera,
+    src_x,
+    src_y,
+    target_width,
+    target_height,
+    scale: float = 1.0,
+    T_world_from_eye: Optional[torch.Tensor] = None,
+) -> Camera:
+    """Intrinsics of a sub-window (and rescale) of the sensor:
+    f' = f * scale, c' = (c - (x, y) + 0.5) * scale - 0.5; the distortion
+    coefficients are unchanged (they act on normalized coordinates)."""
+    sx = torch.as_tensor(src_x, dtype=cam.cx.dtype, device=cam.cx.device)
+    sy = torch.as_tensor(src_y, dtype=cam.cy.dtype, device=cam.cy.device)
+    return cam._replace(
+        fx=cam.fx * scale,
+        fy=cam.fy * scale,
+        cx=(cam.cx - sx + 0.5) * scale - 0.5,
+        cy=(cam.cy - sy + 0.5) * scale - 0.5,
+        width=torch.full_like(cam.width, float(target_width)),
+        height=torch.full_like(cam.height, float(target_height)),
+        T_world_from_eye=cam.T_world_from_eye if T_world_from_eye is None else T_world_from_eye,
+    )
 
 
 def intrinsics_matrix(cam: Camera) -> torch.Tensor:

@@ -17,6 +17,7 @@ Field shapes as in the JAX package::
 
 from __future__ import annotations
 
+import json
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -78,6 +79,12 @@ def hand_model_from_dict(d: dict, device=None) -> HandModel:
     return HandModel(**kwargs)
 
 
+def load_hand_model_json(path: str, device=None) -> HandModel:
+    """A hand model JSON of the reference's schema (``generic_hand_model.json``)."""
+    with open(path) as f:
+        return hand_model_from_dict(json.load(f), device=device)
+
+
 def stack_hand_models(hands: List[HandModel]) -> HandModel:
     """Stack hand models along a new leading batch axis (one per recording),
     as ``jax.tree.map(jnp.stack, *hands)`` does."""
@@ -98,6 +105,23 @@ def scaled_hand_model(hand: HandModel, multiplier) -> HandModel:
         joint_rest_positions=hand.joint_rest_positions * mm,
         landmark_rest_positions=hand.landmark_rest_positions * mm,
         mesh_vertices=None if hand.mesh_vertices is None else hand.mesh_vertices * mm,
+    )
+
+
+def mirrored_hand_model(hand: HandModel, to_mirror) -> HandModel:
+    """Mirror the model about x where ``to_mirror`` holds (broadcast over the
+    model's leading batch dims): rotation-axis y, z and rest-position x
+    components flip sign (reference hand.py:114-147)."""
+    like = hand.joint_rotation_axes
+    mask = torch.as_tensor(to_mirror, device=like.device)[..., None, None]
+    flip_yz = torch.tensor([1.0, -1.0, -1.0], dtype=like.dtype, device=like.device)
+    flip_x = torch.tensor([-1.0, 1.0, 1.0], dtype=like.dtype, device=like.device)
+    return hand._replace(
+        joint_rotation_axes=torch.where(mask, like * flip_yz, like),
+        joint_rest_positions=torch.where(mask, hand.joint_rest_positions * flip_x, hand.joint_rest_positions),
+        landmark_rest_positions=torch.where(
+            mask, hand.landmark_rest_positions * flip_x, hand.landmark_rest_positions
+        ),
     )
 
 

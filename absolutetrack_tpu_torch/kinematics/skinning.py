@@ -1,8 +1,8 @@
 """Forward kinematics + linear-blend skinning (port of ``absolutetrack_tpu/kinematics/skinning.py``).
 
 The finger chains compose (R, t) pairs batched over (batch x 5 fingers);
-the sparse skinning weights are a dense (21, 17) matrix. The mesh
-functions wait for the frame-source port.
+the sparse skinning weights are a dense (21, 17) matrix, the mesh's are
+the model's own dense (V, 17) ``dense_bone_weights``.
 """
 
 from __future__ import annotations
@@ -108,6 +108,29 @@ def skin_landmarks(hand: HandModel, joint_angles, wrist_transforms) -> torch.Ten
     )
 
 
+def skin_mesh_vertices(hand: HandModel, joint_angles, wrist_transforms) -> torch.Tensor:
+    """The skinned mesh for the given pose (..., V, 3): the landmarks' LBS
+    blend over the model's dense per-vertex weights."""
+    if hand.mesh_vertices is None or hand.dense_bone_weights is None:
+        raise ValueError("hand model carries no mesh")
+    return skin_points(hand, hand.dense_bone_weights, hand.mesh_vertices, joint_angles, wrist_transforms)
+
+
+def _mirror_right_wrist(wrist_transform: torch.Tensor, hand_idx) -> torch.Tensor:
+    """The wrist transform with its x column negated for right hands (the
+    model stores left hands only)."""
+    hand_idx = torch.as_tensor(hand_idx, device=wrist_transform.device)
+    sign = torch.where(hand_idx == 1, -1.0, 1.0).to(wrist_transform.dtype)
+    xf = wrist_transform.clone()
+    xf[..., :, 0] = xf[..., :, 0] * sign[..., None]
+    return xf
+
+
+def mesh_from_hand_pose(hand: HandModel, joint_angles, wrist_transform, hand_idx) -> torch.Tensor:
+    """World mesh vertices, with the right-hand wrist mirror applied."""
+    return skin_mesh_vertices(hand, joint_angles, _mirror_right_wrist(wrist_transform, hand_idx))
+
+
 def landmarks_from_hand_pose(
     hand: HandModel,
     joint_angles: torch.Tensor,
@@ -116,8 +139,4 @@ def landmarks_from_hand_pose(
 ) -> torch.Tensor:
     """World landmarks; for right hands the wrist's x column flips sign
     before FK (the model stores left hands only)."""
-    hand_idx = torch.as_tensor(hand_idx, device=wrist_transform.device)
-    sign = torch.where(hand_idx == 1, -1.0, 1.0).to(wrist_transform.dtype)
-    xf = wrist_transform.clone()
-    xf[..., :, 0] = xf[..., :, 0] * sign[..., None]
-    return skin_landmarks(hand, joint_angles, xf)
+    return skin_landmarks(hand, joint_angles, _mirror_right_wrist(wrist_transform, hand_idx))

@@ -27,12 +27,18 @@ class ModelConfig:
     input_size: Tuple[int, int] = (96, 96)
     canonical_focal_length: float = 200.0
     num_views: int = 2
-    # "float32" (parity) or "bfloat16" (the serving preset, not ported yet)
+    # "float32" (parity) or "bfloat16" (the serving preset: bf16 conv trunk,
+    # f32 geometry, memory, pooling and decode)
     compute_dtype: str = "float32"
 
     @property
     def dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
+    @classmethod
+    def serving(cls, **overrides) -> "ModelConfig":
+        """The fast-serving preset: bf16 conv trunk."""
+        return cls(compute_dtype="bfloat16", **overrides)
 
     @classmethod
     def tiny(cls, **overrides) -> "ModelConfig":

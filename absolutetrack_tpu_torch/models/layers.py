@@ -41,9 +41,20 @@ def he_normal_(weight: torch.Tensor, generator: Optional[torch.Generator]) -> No
         weight.copy_(std * torch.randn(weight.shape, generator=generator))
 
 
-def conv(cin: int, cout: int, k: int, stride: int = 1, generator=None) -> nn.Conv2d:
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose bias is added by an op of its own after the
+    convolution, as the JAX package's ``conv(x, w) + b`` adds it
+    (``absolutetrack_tpu/models/layers.py:63-74``): in bf16 the
+    convolution's output rounds before the add. (On the CPU ``nn.Conv2d``
+    adds it inside the convolution, before the one rounding.)"""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight, None) + self.bias[:, None, None]
+
+
+def conv(cin: int, cout: int, k: int, stride: int = 1, generator=None) -> Conv2d:
     """k x k conv with k//2 padding (the JAX package's ``SAME1``), He init, zero bias."""
-    c = nn.utils.skip_init(nn.Conv2d, cin, cout, k, stride=stride, padding=k // 2)
+    c = nn.utils.skip_init(Conv2d, cin, cout, k, stride=stride, padding=k // 2)
     he_normal_(c.weight, generator)
     nn.init.zeros_(c.bias)
     return c

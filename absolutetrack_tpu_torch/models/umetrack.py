@@ -8,6 +8,15 @@ explicit ``TemporalState`` carried by the caller.
 
 Public methods keep the JAX package's layouts (crops (B, V, H, W),
 features (B, h, w, C)); the modules inside run NCHW.
+
+``ModelConfig.serving()`` (``compute_dtype="bfloat16"``) follows the JAX
+package's dtype flow: the crops enter the trunk in bf16 and every conv
+module of the trunk, the ConvRNN and the regressors holds its weights in
+bf16 (JAX casts its f32 weights to the activation dtype at each use, the
+same rounding); the FTL casts its transforms to the features' dtype; the
+ConvRNN carries f32 memory; the skeleton encoder stays f32 and its
+features are cast to bf16 where they join; the regressor pools and
+decodes in f32.
 """
 
 from __future__ import annotations
@@ -86,8 +95,6 @@ class UmeTrackModel(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError("the bf16 serving preset is not ported yet")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -98,6 +105,9 @@ class UmeTrackModel(nn.Module):
         self.skeleton_encoder = SkeletonEncoder(cfg, generator)
         self.regressor_k = Regressor(cfg, use_skel=True, predict_skel_scale=False, generator=generator)
         self.regressor_u = Regressor(cfg, use_skel=False, predict_skel_scale=True, generator=generator)
+        for module in (self.backbone, self.fusion, self.temporal, self.regressor_k, self.regressor_u):
+            for p in module.parameters():  # buffers (the wrist template) stay f32
+                p.data = p.data.to(cfg.dtype)
         self.requires_grad_(False)
         self.eval()
         self.to(device)
@@ -114,7 +124,7 @@ class UmeTrackModel(nn.Module):
     def _trunk(self, frame: FrameInputs) -> torch.Tensor:
         """Backbone + FTL fusion -> (B, C, h, w) cam0-space features."""
         b, v, hh, ww = frame.left_images.shape
-        feats = self.backbone(frame.left_images.reshape(b * v, 1, hh, ww))
+        feats = self.backbone(frame.left_images.reshape(b * v, 1, hh, ww).to(self.cfg.dtype))
         feats = feats.reshape((b, v) + feats.shape[1:])
         singlev_xfs = compute_singlev_xfs(frame.intrinsics, self.cfg.canonical_focal_length)
         return fuse_views(self.fusion, feats, singlev_xfs, frame.extrinsics, frame.view_mask, self.cfg)

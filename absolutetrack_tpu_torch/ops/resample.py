@@ -93,15 +93,20 @@ def warp_perspective_crop(
     src_kind: str = cam.FISHEYE62,
     depth_check: bool = True,
     src_valid_hw: Optional[Tuple[int, int]] = None,
+    bf16_rows: bool = False,
 ) -> torch.Tensor:
     """Extract N pinhole crops from fisheye source views -> (N, h, w) f32.
 
     Points behind the source camera are masked (coordinate -1 samples 0).
     ``src_valid_hw``: the true sensor (H, W) when ``src_images`` arrive
-    zero-padded (sampling semantics unchanged).
+    zero-padded (sampling semantics unchanged). ``bf16_rows``: sample with
+    bf16 row weights (``warp_kernel.row_mode_for``).
     """
     w, h = crop_size
     n = src_view_idx.shape[0]
     wx, wy = _crop_source_coords_planar(src_cameras, crop_cameras, crop_size, src_kind, depth_check)
     # (N, h, w) planes: K1 lays its gathers on the crop's rows
-    return bilinear_sample(src_images, src_view_idx, (wx.view(n, h, w), wy.view(n, h, w)), src_valid_hw=src_valid_hw)
+    return bilinear_sample(
+        src_images, src_view_idx, (wx.view(n, h, w), wy.view(n, h, w)),
+        src_valid_hw=src_valid_hw, bf16_rows=bf16_rows,
+    )

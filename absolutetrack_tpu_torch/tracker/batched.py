@@ -29,6 +29,7 @@ from .tracker import (
     TrackerConfig,
     TrackerState,
     TrackFrameResult,
+    samples_bf16_rows,
 )
 
 
@@ -113,6 +114,7 @@ class BatchedTracker:
             self.opts.crop_size,
             src_kind=src_kind,
             src_valid_hw=self.opts.src_valid_hw,
+            bf16_rows=samples_bf16_rows(self.model),
         )
         crops = crops.reshape(r * NUM_HANDS, MAX_VIEWS, crop_h, crop_w) / 255.0
         view_valid = slots.view_valid.reshape(r * NUM_HANDS, MAX_VIEWS)

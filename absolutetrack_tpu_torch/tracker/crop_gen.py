@@ -7,7 +7,8 @@ is built per slot. It takes one frame (cameras ``(V,)``, an unbatched hand
 model) or any leading batch ``B...`` of samples, each with its own cameras
 and hand model: the batch is a tensor axis, not a loop, and stands in for
 ``jax.vmap(gen_crop_slots)`` (``tracker/batched.py:65-87``).
-``gen_crop_slots_from_2d`` waits for the 2D path.
+``gen_crop_slots_from_2d`` drives the crops from per-view 2D keypoints
+(the live demo).
 """
 
 from __future__ import annotations
@@ -166,6 +167,40 @@ def gen_crop_slots(
     return CropSlots(
         view_idx=view_idx,
         view_valid=view_valid,
+        hand_valid=hand_valid,
+        cameras=crop_cams,
+    )
+
+
+def gen_crop_slots_from_2d(
+    cameras: cam.Camera,  # batch (V,) source cameras, V == MAX_VIEWS
+    keypoints_2d: torch.Tensor,  # (NUM_HANDS, V, 21, 2) window coords
+    keypoints_valid: torch.Tensor,  # (NUM_HANDS, V) bool
+    crop_size: Tuple[int, int],
+    focal_multiplier: float = 0.8,
+    src_kind: str = cam.FISHEYE62,
+) -> CropSlots:
+    """Crop cameras from per-view 2D keypoints (the live-demo path): each
+    view's keypoints unproject to unit-depth points in world space, and a
+    look-at crop camera per (hand, view) bounds them; right hands mirror.
+    View slot v uses source camera v (a stereo rig); slot 0 anchors the hand
+    (reference tracker.py:111-219)."""
+    n_hands, v = keypoints_2d.shape[:2]
+    if v != MAX_VIEWS:
+        raise ValueError(f"the 2D path takes {MAX_VIEWS} views, got {v}")
+    device = keypoints_2d.device
+    rays = cam.window_to_eye(cameras, keypoints_2d, src_kind)  # (H, V, 21, 3)
+    pts_world = cam.eye_to_world(cameras, rays)
+    w2e = affine.rigid_inverse(cameras.T_world_from_eye).expand(n_hands, v, 4, 4)
+    mirror = (torch.arange(n_hands, device=device) == hm.RIGHT_HAND_INDEX)[:, None].expand(n_hands, v)
+    crop_cams = crop.gen_crop_camera(
+        w2e, pts_world, crop_size, mirror, camera_angle_deg=0.0, focal_multiplier=focal_multiplier
+    )
+    view_valid = keypoints_valid & crop_cams.valid
+    hand_valid = view_valid[:, 0]
+    return CropSlots(
+        view_idx=torch.arange(v, device=device).expand(n_hands, v),
+        view_valid=view_valid & hand_valid[:, None],
         hand_valid=hand_valid,
         cameras=crop_cams,
     )

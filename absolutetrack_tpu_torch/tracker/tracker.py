@@ -5,8 +5,9 @@
 ``track_sequence`` runs it frame by frame, carrying the state, with the
 semantics of ``absolutetrack_tpu.apps.eval_lib.track_recording(
 pipelined=False)``; ``track_frame_and_calibrate_scale`` is the
-unknown-skeleton step. World geometry is in mm; network extrinsics and
-skeletons are in meters. The 2D-keypoint step waits for a later slice.
+unknown-skeleton step; ``track_frame_from_2d`` the live demo's, with crops
+from per-view 2D keypoints. World geometry is in mm; network extrinsics
+and skeletons are in meters.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from ..kinematics.skinning import landmarks_from_hand_pose
 from ..models.temporal import TemporalState
 from ..models.umetrack import FrameInputs, SkeletonInputs, UmeTrackModel
 from ..ops.resample import warp_perspective_crop
-from .crop_gen import CropSlots, gen_crop_slots
+from .crop_gen import CropSlots, gen_crop_slots, gen_crop_slots_from_2d
 
 MM_TO_M = 0.001
 M_TO_MM = 1000.0
@@ -42,6 +43,13 @@ class TrackerConfig:
     # true sensor (H, W) when frames arrive zero-padded (e.g. 480x636
     # uploaded as 512x640); sampling semantics are those of the unpadded frame
     src_valid_hw: Optional[Tuple[int, int]] = None
+
+
+def samples_bf16_rows(model: UmeTrackModel) -> bool:
+    """A bf16 model (the serving preset) samples its crops with bf16 row
+    weights, as every Pallas warp kernel does; an f32 model keeps the f32
+    rows of JAX's gather."""
+    return model.cfg.dtype == torch.bfloat16
 
 
 class TrackerState(NamedTuple):
@@ -121,6 +129,7 @@ class HandTracker:
             self.opts.crop_size,
             src_kind=src_kind,
             src_valid_hw=self.opts.src_valid_hw,
+            bf16_rows=samples_bf16_rows(self.model),
         )
         crops = crops.reshape(NUM_HANDS, MAX_VIEWS, crop_h, crop_w) / 255.0
         crops = torch.where(slots.view_valid[..., None, None], crops, 0.0)
@@ -248,6 +257,29 @@ class HandTracker:
         )
         frame = self.make_inputs(state, images, cameras, slots, src_kind)
         new_temporal, out = self.model.regress_pose_pred_skel_scale(state.temporal, frame)
+        return self._finish(state, new_temporal, slots, out)
+
+    @torch.no_grad()
+    def track_frame_from_2d(
+        self,
+        state: TrackerState,
+        images: torch.Tensor,  # (V, H, W) stereo views
+        cameras: cam.Camera,  # batch (V,) == MAX_VIEWS
+        hand_model_mm: HandModel,
+        keypoints_2d: torch.Tensor,  # (NUM_HANDS, V, 21, 2) window coords
+        keypoints_valid: torch.Tensor,  # (NUM_HANDS, V) bool
+        src_kind: str = cam.FISHEYE62,
+    ) -> Tuple[TrackerState, TrackFrameResult]:
+        """Live-demo step: crops from per-view 2D detections, not a
+        previous 3D pose (reference tracker.py:111-219)."""
+        slots = gen_crop_slots_from_2d(
+            cameras, keypoints_2d, keypoints_valid, self.opts.crop_size,
+            focal_multiplier=self.opts.hand_ratio_in_crop, src_kind=src_kind,
+        )
+        frame = self.make_inputs(state, images, cameras, slots, src_kind)
+        new_temporal, out = self.model.regress_pose_use_skeleton(
+            state.temporal, frame, self.skeleton_inputs(hand_model_mm)
+        )
         return self._finish(state, new_temporal, slots, out)
 
     @torch.no_grad()

@@ -4,7 +4,7 @@
 
 Builds kernel K1 (``absolutetrack_tpu_torch/csrc/bilinear_sample.cu``)
 with nvcc and holds it against its plain PyTorch version on the card, in
-both row-weight modes (f32, and int8 on uint8 views), at the sequential
+every row-weight mode (f32, bf16, and int8 on uint8 views), at the sequential
 path's shape (4 slots x 96x96), at the non-pipelined lockstep frame's
 (24 recordings x 4 slots, 96 slots) and on edge cases (flat planes,
 crop rows that are no multiple of 8, planes off a 16-byte boundary, one
@@ -21,12 +21,23 @@ before each:
 * lockstep (``eval_lib.track_recordings_batched(pipelined=True)``): 24
   recordings of 16 frames in chunks of 8 (one K1 launch of 768 slots a
   chunk), twice more for the spread, stages, a one-chunk trace, K1 at
-  the chunk's own coordinates against its plain version in both modes,
+  the chunk's own coordinates against its plain version in every mode,
   and the results against the sequential tracker and against the port's
-  CPU run.
+  CPU run;
+* demo (``apps/demo``, replay mode): the scene's views 1-2 as a stereo
+  rig, its box-mesh hand rendered by ``MeshFrameSource`` (before the
+  timed loop) and GT 2D keypoints from a ``ReplayDetector``, through
+  ``LiveTracker`` for 32 frames after a warm-up (one K1 launch of 4 slots
+  a frame), in parity (``ModelConfig()``, f32 rows) and serving
+  (``ModelConfig.serving()``, whose tracker samples with bf16 rows, as
+  the TPU's kernels do): the step's host time and its spread,
+  ``run_pipeline``'s, the device's busy time; each precision against the
+  port's CPU run (serving end to end and, on the same inputs, conv by conv
+  and its tail: ``serving_stages``), serving against parity, and one
+  replay through the CLI (``main``).
 
 Prints the card's name and power limit first, one ``{"path": ...}``, one
-``{"lockstep": ...}`` and one ``{"kernels": [...]}`` line and, last,
+``{"lockstep": ...}``, one ``{"demo": ...}`` and one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``. Any failed check raises; without a CUDA
 device, or without the port beside it, it exits non-zero and prints no
 result.
@@ -60,6 +71,22 @@ CPU_CHECKED = 2  # recordings of the card-against-CPU run, LOCKSTEP_CHUNK frames
 K1_TOL = 1e-3  # 0..255 scale; K1 rounds every product and sum as the plain version does
 LANDMARK_TOL_MM = 0.5
 ANGLE_TOL = 1e-3
+DEMO_FRAMES = 32
+DEMO_WARMUP = 4
+DEMO_CPU_FRAMES = 8  # card against CPU, each precision
+DEMO_CLI_FRAMES = 4
+SERVING_TRANSLATION_REL = 0.01  # tests/test_models.py::TestServingPrecision's budget
+SERVING_ANGLE_REL = 0.02
+# Serving, the card against the port's CPU run. End to end, the rare bf16
+# outputs that round the other way in cuDNN's and the CPU's sums cascade
+# through the trunk to the bf16-against-f32 drift's size, so the end-to-end
+# limits are parity's and cannot tell a wrongly rounded flow; stage by stage
+# on the same inputs they can: each conv's outputs bit-equal, and the tail.
+SERVING_CPU_WRIST_MM = LANDMARK_TOL_MM
+SERVING_CPU_ANGLE = ANGLE_TOL
+SERVING_CONV_BIT_EQUAL = 0.998  # the least share of a conv's bf16 outputs bit-equal to the CPU's
+SERVING_TAIL_WRIST_MM = 1e-3  # the tail (ConvRNN, regressor, decode) from the same features
+SERVING_TAIL_ANGLE = 1e-6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 
@@ -87,10 +114,52 @@ def _rot_z(deg):
     return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
 
 
-def synthetic_hand_model() -> dict:
+_BOX_TRIANGLES = np.array(
+    [[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
+     [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]],
+    np.int64,
+)
+
+
+def _box(a, b, half_w: float, half_d: float) -> np.ndarray:
+    """(8, 3) corners of a box from ``a`` to ``b``, ``half_w`` wide across
+    the segment in the palm plane and ``half_d`` deep along z: corner
+    4 * end + 2 * i + j sits at end -+ half_w (i) -+ half_d (j)."""
+    d = (b - a) / np.linalg.norm(b - a)
+    e1 = np.cross(d, [0.0, 0.0, 1.0])
+    e1 /= np.linalg.norm(e1)
+    e2 = np.cross(d, e1)
+    return np.array([
+        end + si * half_w * e1 + sj * half_d * e2
+        for end in (a, b) for si in (-1, 1) for sj in (-1, 1)
+    ])
+
+
+def _synthetic_mesh(jp: np.ndarray, tips: np.ndarray) -> dict:
+    """A box mesh of the hand: one box for the palm on the wrist frame and
+    one for each finger's three phalanges, each on the skinning frame that
+    moves it (frame 2 + 3f + s), with one-hot dense bone weights."""
+    boxes = [(_box(np.array([-3.0, -5.0, 0.0]), np.array([-3.0, 60.0, 0.0]), 36.0, 9.0), 1)]
+    for f in range(5):
+        ends = [jp[4 * f + 1], jp[4 * f + 2], jp[4 * f + 3], tips[f]]
+        for seg in range(3):
+            boxes.append((_box(ends[seg], ends[seg + 1], 7.0 - seg, 6.0 - seg), 2 + 3 * f + seg))
+    verts = np.concatenate([b for b, _ in boxes])
+    frames = np.repeat([frame for _, frame in boxes], 8)
+    return dict(
+        mesh_vertices=verts.astype(np.float32),
+        mesh_triangles=np.concatenate([_BOX_TRIANGLES + 8 * i for i in range(len(boxes))]),
+        dense_bone_weights=np.eye(17, dtype=np.float32)[frames],
+    )
+
+
+def synthetic_hand_model(mesh: bool = False) -> dict:
     """A left-canonical hand in mm with the fields of the JAX HandModel:
     5 four-joint fingers along +y from the wrist, flexion about x,
-    abduction about z, 21 landmarks skinned to 1-2 of the 17 frames."""
+    abduction about z, 21 landmarks skinned to 1-2 of the 17 frames. With
+    ``mesh``, also a box mesh (``mesh_vertices``, ``mesh_triangles``,
+    ``dense_bone_weights``) for the mesh renderer; the other fields are
+    the same either way."""
     base_x = [-32.0, -18.0, -2.0, 14.0, 28.0]
     base_y = [12.0, 40.0, 42.0, 40.0, 36.0]
     seg = [17.0, 22.0, 25.0, 23.0, 18.0]
@@ -120,6 +189,7 @@ def synthetic_hand_model() -> dict:
     limits[20:] = [-0.6, 0.6]
     idx = np.arange(22)
     return dict(
+        **(_synthetic_mesh(jp, lm[:5]) if mesh else {}),
         joint_rotation_axes=axes.astype(np.float32),
         joint_rest_positions=jp.astype(np.float32),
         joint_frame_index=idx,
@@ -133,9 +203,10 @@ def synthetic_hand_model() -> dict:
     )
 
 
-def build_scene(seed: int = 0, n_frames: int = FEEDBACK_FRAMES) -> dict:
+def build_scene(seed: int = 0, n_frames: int = FEEDBACK_FRAMES, mesh: bool = False) -> dict:
     """A 4-camera fisheye62 rig (rolled 0/90/90/180 deg), two hands about
-    350 mm in front of it moving slowly, and uint8 frames."""
+    350 mm in front of it moving slowly, and uint8 frames; ``mesh`` gives
+    the hand model its box mesh (nothing else changes)."""
     rng = np.random.default_rng(seed)
     h, w = SRC_HW
     rolls = np.array([0.0, 90.0, 90.0, 180.0])
@@ -177,7 +248,7 @@ def build_scene(seed: int = 0, n_frames: int = FEEDBACK_FRAMES) -> dict:
         cameras=cameras,
         camera_angles=rolls.astype(np.float32),
         camera_to_world=np.tile(c2w, (n_frames, 1, 1, 1)).astype(np.float32),
-        hand_model=synthetic_hand_model(),
+        hand_model=synthetic_hand_model(mesh),
         joint_angles=ja.astype(np.float32),
         wrist_transforms=wrist.astype(np.float32),
         hand_confidences=np.ones((n_frames, 2), np.float32),
@@ -486,7 +557,7 @@ def kernel_inputs(ts: dict, crop_size) -> dict:
 
 
 def kernel_phase(ts: dict, crop_size) -> dict:
-    """K1 against its plain version on the card, in both row-weight modes,
+    """K1 against its plain version on the card, in every row-weight mode,
     at the sequential path's shape (N=4 slots x 96x96), at the
     non-pipelined lockstep frame's (24 recordings x 4 slots, N=96) and on
     ``k1_edge_cases``; K1's times at the two main shapes."""
@@ -504,6 +575,11 @@ def kernel_phase(ts: dict, crop_size) -> dict:
         "float32_padded": (padded_u8.float(), SRC_HW),
         "float32_unpadded": (unpadded_u8.float(), None),
         "bfloat16_padded": (padded_u8.to(torch.bfloat16), SRC_HW),
+        # fractional values: the bf16 rows round them, as the Pallas kernels do
+        "float32_fractional_padded": (
+            padded_u8.float() + torch.rand(padded_u8.shape, generator=torch.Generator().manual_seed(2)).to(dev),
+            SRC_HW,
+        ),
     }
     # out-of-range view indices: a negative one counts from the end once, then all clamp
     idx_out = torch.tensor([-1, N_VIEWS, -N_VIEWS - 2, 2 * N_VIEWS + 1], device=dev)
@@ -513,10 +589,10 @@ def kernel_phase(ts: dict, crop_size) -> dict:
     for name, (images, valid_hw) in sources.items():
         for case, (xs, ys, ii) in cases.items():
             xs, ys = _probed(xs, ys, valid_hw or tuple(images.shape[1:]))
-            for int8_rows in (False, True) if images.dtype == torch.uint8 else (False,):
-                err = k1_error(images, ii, xs, ys, valid_hw, int8_rows)
+            for mode in row_modes(images.dtype):
+                err = k1_error(images, ii, xs, ys, valid_hw, mode)
                 if err > K1_TOL:
-                    raise RuntimeError(f"K1 {name} {case} int8_rows={int8_rows}: max |err| {err} > {K1_TOL}")
+                    raise RuntimeError(f"K1 {name} {case} rows={mode}: max |err| {err} > {K1_TOL}")
                 max_err = max(max_err, err)
 
     return dict(
@@ -569,24 +645,34 @@ def _probed(xs, ys, valid_hw):
     return xs, ys
 
 
-def k1_error(images, ii, xs, ys, valid_hw, int8_rows=False) -> float:
-    """Max |K1 - plain| on one call; raises on a non-finite output."""
+def row_modes(dtype) -> tuple:
+    """K1's row-weight modes for a source type: f32 and bf16, and int8 for uint8."""
+    import torch
+
+    from absolutetrack_tpu_torch.ops import warp_kernel as wk
+
+    return (wk.ROWS_F32, wk.ROWS_BF16) + ((wk.ROWS_INT8,) if dtype == torch.uint8 else ())
+
+
+def k1_error(images, ii, xs, ys, valid_hw, row_mode=0) -> float:
+    """Max |K1 - plain| on one call in one row-weight mode; raises on a
+    non-finite output."""
     import torch
 
     from absolutetrack_tpu_torch.ops import warp_kernel
 
-    got = warp_kernel.K1(images, ii, xs, ys, valid_hw, int8_rows)
-    want = warp_kernel.bilinear_sample_plain(images, ii, (xs, ys), valid_hw, int8_rows)
+    got = warp_kernel.K1(images, ii, xs, ys, valid_hw, row_mode)
+    want = warp_kernel.bilinear_sample_plain(images, ii, (xs, ys), valid_hw, row_mode)
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
-        raise RuntimeError(f"K1: non-finite output at N={xs.shape[0]} int8_rows={int8_rows}")
+        raise RuntimeError(f"K1: non-finite output at N={xs.shape[0]} rows={row_mode}")
     return float((got - want).abs().max())
 
 
 def k1_timings(images, ii, xs, ys, iters: int = 100) -> dict:
-    """K1's device time at one shape (CUDA-graph replay) in both row-weight
-    modes, beside its bound, its plain version's time and ``grid_sample``'s,
-    and the eager calls'."""
+    """K1's device time at one shape (CUDA-graph replay) in its three
+    row-weight modes, beside its bound, its plain version's time (f32 and
+    bf16 rows) and ``grid_sample``'s, and the eager calls'."""
     import torch
     from torch.nn import functional as F
 
@@ -595,8 +681,12 @@ def k1_timings(images, ii, xs, ys, iters: int = 100) -> dict:
     n, p = xs.shape[0], xs[0].numel()
     h, w = SRC_HW
     k1 = lambda: warp_kernel.K1(images, ii, xs, ys, SRC_HW)  # noqa: E731
-    k1_int8 = lambda: warp_kernel.K1(images, ii, xs, ys, SRC_HW, True)  # noqa: E731
+    k1_int8 = lambda: warp_kernel.K1(images, ii, xs, ys, SRC_HW, warp_kernel.ROWS_INT8)  # noqa: E731
+    k1_bf16 = lambda: warp_kernel.K1(images, ii, xs, ys, SRC_HW, warp_kernel.ROWS_BF16)  # noqa: E731
     plain = lambda: warp_kernel.bilinear_sample_plain(images, ii, (xs, ys), SRC_HW)  # noqa: E731
+    plain_bf16 = lambda: warp_kernel.bilinear_sample_plain(  # noqa: E731
+        images, ii, (xs, ys), SRC_HW, warp_kernel.ROWS_BF16
+    )
     # yardstick only: grid_sample blends border taps with zeros, so it is
     # not the same function at the border; the port never calls it
     lib_in = images[ii, :h, :w].float()[:, None].contiguous()
@@ -615,7 +705,8 @@ def k1_timings(images, ii, xs, ys, iters: int = 100) -> dict:
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS
     few = max(iters // 5, 2)
     out = dict(
-        ms=_device_ms(k1, iters), int8_ms=_device_ms(k1_int8, iters), plain_ms=_device_ms(plain, few),
+        ms=_device_ms(k1, iters), int8_ms=_device_ms(k1_int8, iters), bf16_ms=_device_ms(k1_bf16, iters),
+        plain_ms=_device_ms(plain, few), bf16_plain_ms=_device_ms(plain_bf16, few),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=_device_ms(library, iters),
@@ -670,15 +761,15 @@ def stage_breakdown(tracker, ts, n_frames: int) -> dict:
     return {k: v / n_frames * 1e3 for k, v in total.items()}
 
 
-def device_busy(tracker, ts, n_frames: int) -> dict:
-    """Kernel time and kernel count a frame of the feedback run, summed
-    over a ``torch.profiler`` trace of ``n_frames`` frames on the card."""
+def device_busy(run, n_frames: int) -> dict:
+    """Kernel time and kernel count a frame, summed over a ``torch.profiler``
+    trace of ``run()``, which tracks ``n_frames`` frames on the card."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _run(tracker, ts, n_frames, True)
+        run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not kernels:
@@ -731,7 +822,7 @@ def path_phase(scene: dict, ts: dict, seed: int) -> dict:
         torch.cuda.synchronize()
         repeats.append((time.perf_counter() - t0) / FEEDBACK_FRAMES * 1e3)
     stages = stage_breakdown(tracker, ts, GIVEN_POSE_FRAMES)
-    busy = device_busy(tracker, ts, GIVEN_POSE_FRAMES)
+    busy = device_busy(lambda: _run(tracker, ts, GIVEN_POSE_FRAMES, True), GIVEN_POSE_FRAMES)
 
     # crops from the given poses: this device against the CPU (plain sampler)
     net = damped(model)
@@ -899,10 +990,20 @@ def lockstep_phase(seed: int) -> dict:
         # 1,024 slots (32 recordings), where the TPU cuts the call into slabs
         "n1024": tuple(torch.cat([a, a[:256]]).contiguous() for a in (ii, xs, ys)),
     }.items():
-        errs[name] = max(k1_error(images, idx, x, y, valid_hw, int8_rows) for int8_rows in (False, True))
+        errs[name] = max(k1_error(images, idx, x, y, valid_hw, mode) for mode in row_modes(images.dtype))
         if errs[name] > K1_TOL:
             raise RuntimeError(f"K1 at {name}: max |err| {errs[name]} > {K1_TOL}")
-    k1 = dict(k1_timings(images, ii, xs, ys, iters=20), max_abs_err=errs["n768"], n1024_max_abs_err=errs["n1024"])
+    # the bf16 rows on f32 and bf16 views as well, at the chunk's coordinates
+    errs["n768_bf16_rows_f32_bf16_views"] = max(
+        k1_error(images.to(dtype), ii, xs, ys, valid_hw, warp_kernel.ROWS_BF16)
+        for dtype in (torch.float32, torch.bfloat16)
+    )
+    if errs["n768_bf16_rows_f32_bf16_views"] > K1_TOL:
+        raise RuntimeError(f"K1 bf16 rows at N=768: max |err| {errs['n768_bf16_rows_f32_bf16_views']} > {K1_TOL}")
+    k1 = dict(
+        k1_timings(images, ii, xs, ys, iters=20), max_abs_err=errs["n768"], n1024_max_abs_err=errs["n1024"],
+        bf16_rows_f32_bf16_views_max_abs_err=errs["n768_bf16_rows_f32_bf16_views"],
+    )
     del images, ii, xs, ys
     torch.cuda.empty_cache()
 
@@ -946,6 +1047,309 @@ def lockstep_phase(seed: int) -> dict:
     )
 
 
+def demo_inputs(seed: int, n_frames: int):
+    """The demo's replay, as ``apps/demo/main.py`` builds it, from the
+    scene with its box-mesh hand: (labels, the stereo pair's cameras, and
+    per frame the (2, 480, 636) uint8 mono views, their RGB copies and the
+    GT keypoints' (2, 2, 21, 2) slots and validity), rendered up front."""
+    from absolutetrack_tpu_torch.apps.demo.detector_2d import keypoints_to_slots
+    from absolutetrack_tpu_torch.apps.demo.main import STEREO_VIEWS, replay_from_labels, stereo_pair
+    from absolutetrack_tpu_torch.tracker.video_data import labels_from_json
+
+    labels = labels_from_json(labels_json(build_scene(seed, n_frames=n_frames, mesh=True)))
+    frames, detector = replay_from_labels(labels, n_frames)
+    out = []
+    for mono, rgb in stereo_pair(frames):
+        kp, valid = keypoints_to_slots([detector.detect(rgb[v], v) for v in range(2)])
+        detector.advance()
+        out.append((mono, rgb, kp, valid))
+    stereo = labels.cameras_at(0).map(lambda x: x[list(STEREO_VIEWS)])
+    return labels, stereo, detector.sequence, out
+
+
+def _demo_steps(live, inputs) -> tuple:
+    """``live`` over ``inputs`` from a reset state -> (host ms a frame, the
+    per-frame keypoint dicts, the per-frame results on the device)."""
+    import torch
+
+    live.reset()
+    if live.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, results = [], []
+    for mono, _, kp, valid in inputs:
+        outs.append(live(mono, kp, valid))  # ends in the frame's blocking readback
+        results.append(live.last_result)
+    return (time.perf_counter() - t0) / len(inputs) * 1e3, outs, results
+
+
+def _demo_errors(a_outs, a_res, b_outs, b_res) -> tuple:
+    """(landmark mm, joint angle rad) between two runs of the demo, hand by hand."""
+    lm, ja = 0.0, 0.0
+    for oa, ra, ob, rb in zip(a_outs, a_res, b_outs, b_res):
+        if sorted(oa) != sorted(ob):
+            raise RuntimeError(f"tracked hands differ: {sorted(oa)} vs {sorted(ob)}")
+        for h in oa:
+            lm = max(lm, float(np.linalg.norm(oa[h] - ob[h], axis=-1).max()))
+            ja = max(ja, float((ra.joint_angles[h].cpu() - rb.joint_angles[h].cpu()).abs().max()))
+    return lm, ja
+
+
+def _wrist_angle_errors(a_res, b_res) -> tuple:
+    """(wrist translation mm, joint angle rad) max errors of two runs' results,
+    and the scales of ``a_res``: its largest translation and max(|angle|, 1)."""
+    import torch
+
+    ta, tb = (torch.stack([r.wrist_xfs[:, :3, 3] for r in res]).cpu() for res in (a_res, b_res))
+    aa, ab = (torch.stack([r.joint_angles for r in res]).cpu() for res in (a_res, b_res))
+    return (
+        float((ta - tb).abs().max()), float((aa - ab).abs().max()),
+        float(ta.abs().max()), max(float(aa.abs().max()), 1.0),
+    )
+
+
+def _bf16_agreement(a, b) -> tuple:
+    """(share of bit-equal elements, largest difference in units of the
+    bf16 spacing at ``b``) of two tensors of bf16 values."""
+    import torch
+
+    a, b = a.float().cpu(), b.float().cpu()
+    _, e = torch.frexp(b)
+    spacing = torch.ldexp(torch.ones_like(b), e - 8)  # bf16 keeps 8 significant bits
+    return float((a == b).float().mean()), float(((a - b).abs() / spacing).max())
+
+
+def serving_stages(card_net, cpu_net, f32_net, live, frame_input) -> dict:
+    """One demo frame from a reset state through the serving network on
+    the card and through the port's CPU copy on the card's own inputs.
+
+    Conv by conv: each conv's bf16 output on the card against the CPU
+    copy's on the card's input to that conv (share bit-equal, largest
+    difference in bf16 spacings), and the same convs computed in f32 on
+    the same bf16 values, bias included, and rounded once at the end (what
+    a conv that rounds at other places than JAX's ``conv(x, w) + b`` gives).
+    Whole stages: the trunk's bf16 features and, from the card's features,
+    the tail's f32 outputs; the f32 trunk's features rounded to bf16 give
+    the share that a trunk computing in f32 reaches."""
+    import torch
+    from torch.nn import functional as F
+
+    from absolutetrack_tpu_torch.models.layers import Conv2d
+    from absolutetrack_tpu_torch.models.umetrack import FrameInputs, SkeletonInputs
+    from absolutetrack_tpu_torch.tracker.crop_gen import gen_crop_slots_from_2d
+
+    tr, dev = live.tracker, card_net.device
+    mono, _, kp, valid = frame_input
+    slots = gen_crop_slots_from_2d(
+        live.cameras, torch.from_numpy(kp).to(dev), torch.from_numpy(valid).to(dev),
+        tr.opts.crop_size, focal_multiplier=tr.opts.hand_ratio_in_crop,
+    )
+    state = tr.init_state().temporal
+    frame = tr.make_inputs(tr.init_state(), torch.from_numpy(mono).to(dev), live.cameras, slots)
+    skel = tr.skeleton_inputs(live.hand_model_mm)
+    cpu_frame = FrameInputs(*(x.cpu() for x in frame))
+    cpu_state = type(state)(*(x.cpu() for x in state))
+    cpu_skel = SkeletonInputs(*(x.cpu() for x in skel))
+    convs = {name: m for name, m in card_net.named_modules() if isinstance(m, Conv2d)}
+    seen = {}
+
+    def record(name):
+        def hook(_module, inputs, output):
+            seen.setdefault(name, (inputs[0], output))  # a hook that returns None keeps the output
+
+        return hook
+
+    hooks = [m.register_forward_hook(record(name)) for name, m in convs.items()]
+    try:
+        with torch.no_grad():
+            card = card_net.extract_features(frame)
+            n = card.shape[0]
+            _, out_card = card_net.regress_from_features(state, frame, card, card_net.encode_skeleton(skel, n))
+    finally:
+        for h in hooks:
+            h.remove()
+    cpu_convs = dict(cpu_net.named_modules())
+    per_conv, once = {}, {}
+    with torch.no_grad():
+        cpu = cpu_net.extract_features(cpu_frame)
+        f32 = f32_net.extract_features(frame).to(torch.bfloat16)
+        _, out_cpu = cpu_net.regress_from_features(cpu_state, cpu_frame, card.cpu(), cpu_net.encode_skeleton(cpu_skel, n))
+        for name, (x, y) in seen.items():
+            if x.dtype != torch.bfloat16 or y.dtype != torch.bfloat16:
+                raise RuntimeError(f"serving conv {name}: {x.dtype} in, {y.dtype} out on the card")
+            m = convs[name]
+            want = cpu_convs[name](x.cpu())
+            per_conv[name] = _bf16_agreement(y, want)
+            f32_conv = F.conv2d(x.float(), m.weight.float(), m.bias.float(), m.stride, m.padding)
+            once[name] = _bf16_agreement(f32_conv.to(torch.bfloat16), want)
+    equal, spacings = _bf16_agreement(card, cpu)
+    f32_equal, f32_spacings = _bf16_agreement(f32, cpu)
+    worst = min(per_conv, key=lambda k: per_conv[k][0])
+    return dict(
+        convs=len(per_conv),
+        conv_min_bit_equal_share=per_conv[worst][0],
+        conv_min_bit_equal_share_at=worst,
+        conv_max_diff_bf16_spacings=max(v[1] for v in per_conv.values()),
+        rounded_once_conv_min_bit_equal_share=min(v[0] for v in once.values()),
+        trunk_features=int(card.numel()),
+        trunk_bit_equal_share=equal,
+        trunk_max_diff_bf16_spacings=spacings,
+        f32_trunk_bit_equal_share=f32_equal,
+        f32_trunk_max_diff_bf16_spacings=f32_spacings,
+        tail_wrist_max_err_mm=float((out_card.wrist_xfs[:, :3, 3].cpu() - out_cpu.wrist_xfs[:, :3, 3]).abs().max()) * 1e3,
+        tail_joint_angle_max_err=float((out_card.joint_angles.cpu() - out_cpu.joint_angles).abs().max()),
+    )
+
+
+def with_biases(model, seed: int, std: float = 0.05):
+    """``model`` with N(0, std) conv biases, drawn from ``seed`` (the init
+    zeroes them), so that where a bias add rounds shows in the serving checks."""
+    import torch
+
+    from absolutetrack_tpu_torch.models.layers import Conv2d
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Conv2d):
+                m.bias.copy_(std * torch.randn(m.bias.shape, generator=g))
+    return model
+
+
+def demo_phase(seed: int) -> dict:
+    """The live demo in replay mode at full width on the card, parity and
+    serving, and its checks (see the module's docstring)."""
+    import io
+    import tempfile
+    from contextlib import redirect_stdout
+
+    import torch
+
+    from absolutetrack_tpu_torch.apps.demo import main as demo_main
+    from absolutetrack_tpu_torch.apps.demo.detector_2d import ReplayDetector
+    from absolutetrack_tpu_torch.apps.demo.pipeline import DemoConfig, LiveTracker, run_pipeline
+    from absolutetrack_tpu_torch.models.config import ModelConfig
+    from absolutetrack_tpu_torch.models.layers import set_conv_precision
+    from absolutetrack_tpu_torch.models.umetrack import UmeTrackModel
+    from absolutetrack_tpu_torch.ops import warp_kernel
+
+    set_conv_precision("highest")  # f32 parts without TF32 in both runs
+    n, warm = DEMO_FRAMES, DEMO_WARMUP
+    labels, stereo, sequence, inputs = demo_inputs(seed, warm + n)
+    warmup, counted = inputs[:warm], inputs[warm:]
+    parity_net = damped(with_biases(UmeTrackModel(ModelConfig(), device="cuda", generator=torch.Generator().manual_seed(seed)), seed))
+    serving_net = UmeTrackModel(ModelConfig.serving(), device="cuda", generator=torch.Generator().manual_seed(seed))
+    serving_net.load_state_dict(parity_net.state_dict())  # the same weights, rounded to bf16 once
+    p = ModelConfig().input_size[0] * ModelConfig().input_size[1]
+
+    runs = {}
+    # the serving model's tracker samples with bf16 rows, the parity model's with f32 rows
+    for name, net, mode in (("parity", parity_net, "f32"), ("serving", serving_net, "bf16")):
+        live = LiveTracker(net, labels.hand_model, cameras=stereo)
+        _demo_steps(live, warmup)  # cuDNN plans, the allocator
+        warp_kernel.K1.reset_counts()
+        ms, outs, results = _demo_steps(live, counted)
+        launches, shapes, modes = warp_kernel.K1.launches, dict(warp_kernel.K1.shapes), dict(warp_kernel.K1.modes)
+        if launches != n or shapes != {(4, p): n} or modes != {mode: n}:
+            raise RuntimeError(f"demo {name}: K1 launches {launches}, shapes {shapes}, modes {modes}; want {n} {mode} at N=4")
+        valid = torch.stack([r.hand_valid for r in results]).cpu()
+        for r in results:
+            for field in ("joint_angles", "wrist_xfs"):
+                if not torch.isfinite(getattr(r, field)).all():
+                    raise RuntimeError(f"demo {name}: non-finite {field}")
+        if not valid.all() or any(sorted(o) != [0, 1] for o in outs):
+            raise RuntimeError(f"demo {name}: a hand was lost on a clean replay")
+        repeats = [_demo_steps(live, counted)[0] for _ in range(2)]
+        live.reset()
+        det = ReplayDetector(sequence[warm:])
+        t0 = time.perf_counter()
+        run_pipeline(
+            ((mono, rgb) for mono, rgb, _, _ in counted), det, live, DemoConfig(send_udp=False), max_frames=n
+        )
+        pipeline_ms = (time.perf_counter() - t0) / n * 1e3
+        busy = device_busy(lambda: _demo_steps(live, counted[:GIVEN_POSE_FRAMES]), GIVEN_POSE_FRAMES)
+        runs[name] = dict(
+            live=live, outs=outs, results=results,
+            report=dict(
+                frames=n, step_ms_per_frame=ms, step_ms_per_frame_repeats=repeats,
+                pipeline_ms_per_frame=pipeline_ms, **busy,
+                k1_launches=launches, k1_slots_per_launch=4, k1_row_mode=mode,
+            ),
+        )
+
+    # parity: the card against the port's CPU run
+    par = runs["parity"]
+    few = counted[:DEMO_CPU_FRAMES]
+    cpu = LiveTracker(copy.deepcopy(parity_net).to("cpu"), labels.hand_model, cameras=stereo)
+    _, cpu_outs, cpu_res = _demo_steps(cpu, few)
+    lm_err, ja_err = _demo_errors(par["outs"][: len(few)], par["results"][: len(few)], cpu_outs, cpu_res)
+    if lm_err > LANDMARK_TOL_MM or ja_err > ANGLE_TOL:
+        raise RuntimeError(f"demo card vs CPU: landmarks {lm_err} mm, joint angles {ja_err}")
+
+    # serving against parity on the card, TestServingPrecision's relative budget
+    ser = runs["serving"]
+    dt, da, scale_t, scale_a = _wrist_angle_errors(par["results"], ser["results"])
+    if not dt < SERVING_TRANSLATION_REL * scale_t or not da < SERVING_ANGLE_REL * scale_a:
+        raise RuntimeError(f"serving vs parity: wrist {dt} mm of {scale_t}, angles {da} of {scale_a}")
+    if any(r.wrist_xfs.dtype != torch.float32 or r.joint_angles.dtype != torch.float32 for r in ser["results"]):
+        raise RuntimeError("serving outputs are not f32")
+
+    # serving: the card against the port's CPU run, which rounds as JAX's
+    # serving model does op by op (tests/test_torch_serving.py)
+    cpu = LiveTracker(copy.deepcopy(serving_net).to("cpu"), labels.hand_model, cameras=stereo)
+    _, cpu_outs, cpu_res = _demo_steps(cpu, few)
+    s_lm, _ = _demo_errors(ser["outs"][: len(few)], ser["results"][: len(few)], cpu_outs, cpu_res)
+    s_dt, s_da, _, _ = _wrist_angle_errors(ser["results"][: len(few)], cpu_res)
+    if not s_dt < SERVING_CPU_WRIST_MM or not s_da < SERVING_CPU_ANGLE:
+        raise RuntimeError(f"serving card vs CPU: wrist {s_dt} mm, joint angles {s_da}")
+    stages = serving_stages(serving_net, cpu.tracker.model, parity_net, ser["live"], counted[0])
+    if (
+        not stages["conv_min_bit_equal_share"] >= SERVING_CONV_BIT_EQUAL
+        or not stages["tail_wrist_max_err_mm"] < SERVING_TAIL_WRIST_MM
+        or not stages["tail_joint_angle_max_err"] < SERVING_TAIL_ANGLE
+    ):
+        raise RuntimeError(f"serving stages, card vs CPU: {stages}")
+
+    # one replay through the CLI, the labels written as a recording's JSON
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "labels.json"
+        path.write_text(json.dumps(labels_json(build_scene(seed, n_frames=DEMO_CLI_FRAMES, mesh=True))))
+        out = io.StringIO()
+        with redirect_stdout(out):
+            demo_main.main([
+                "--source", "replay", "--labels", str(path), "--max-frames", str(DEMO_CLI_FRAMES),
+                "--no-udp", "--torch-device", "cuda",
+            ])
+    cli_lines = [line for line in out.getvalue().splitlines() if line.startswith("frame ")]
+    if len(cli_lines) != DEMO_CLI_FRAMES or "hands=[0, 1]" not in cli_lines[-1]:
+        raise RuntimeError(f"demo CLI: {out.getvalue()!r}")
+    cli_s = time.perf_counter() - t0
+
+    for r in runs.values():
+        del r["live"]
+    return dict(
+        views="scene views 1-2 (rolled 90 deg), 480x636 uint8, box-mesh hand, GT 2D keypoints",
+        warmup_frames=warm,
+        parity=runs["parity"]["report"],
+        serving=runs["serving"]["report"],
+        cpu_checked_frames=len(few),
+        vs_cpu_landmark_max_err_mm=lm_err,
+        vs_cpu_joint_angle_max_err=ja_err,
+        serving_vs_parity_wrist_max_err_mm=dt,
+        serving_vs_parity_wrist_scale_mm=scale_t,
+        serving_vs_parity_joint_angle_max_err=da,
+        serving_vs_parity_angle_scale=scale_a,
+        serving_vs_cpu_landmark_max_err_mm=s_lm,
+        serving_vs_cpu_wrist_max_err_mm=s_dt,
+        serving_vs_cpu_joint_angle_max_err=s_da,
+        serving_stages_vs_cpu=stages,
+        cli_frames=len(cli_lines),
+        cli_s=cli_s,
+        cli_last_line=cli_lines[-1],
+    )
+
+
 def main(seed: int = 0) -> int:
     import torch
 
@@ -978,10 +1382,12 @@ def main(seed: int = 0) -> int:
     path = path_phase(scene, ts, seed)
     del ts
     lockstep = lockstep_phase(seed)
+    demo = demo_phase(seed)
 
     n768 = lockstep["k1_n768"]
     print(json.dumps({"path": path, "card": smi}))
     print(json.dumps({"lockstep": lockstep, "card": smi}))
+    print(json.dumps({"demo": demo, "card": smi}))
     print(json.dumps({"kernels": [{
         "name": "bilinear_sample",
         "route": "cuda",
@@ -989,12 +1395,22 @@ def main(seed: int = 0) -> int:
         "replaces": "absolutetrack_tpu/ops/pallas_warp.py:224 (_fused_warp_kernel); "
                     ":195 (_narrow_warp_kernel); :281 (_overflow_warp_kernel); "
                     ":307 (_banded_warp_kernel); :322 (_covering_warp_kernel); "
-                    "pallas_warp.py:127-173 (int8 row mix)",
-        "launches": path["k1_launches"] + lockstep["k1_launches"],
-        "launches_by_path": {"sequential": path["k1_launches"], "lockstep": lockstep["k1_launches"]},
-        "max_abs_err": max(k["max_abs_err"], n768["max_abs_err"], n768["n1024_max_abs_err"]),
+                    "pallas_warp.py:127-173 (int8 row mix, row f); "
+                    "pallas_warp.py:174-186 (bf16 row mix, row g)",
+        "launches": path["k1_launches"] + lockstep["k1_launches"]
+        + demo["parity"]["k1_launches"] + demo["serving"]["k1_launches"],
+        "launches_by_path": {
+            "sequential": path["k1_launches"], "lockstep": lockstep["k1_launches"],
+            "demo_parity_f32_rows": demo["parity"]["k1_launches"],
+            "demo_serving_bf16_rows": demo["serving"]["k1_launches"],
+        },
+        "max_abs_err": max(
+            k["max_abs_err"], n768["max_abs_err"], n768["n1024_max_abs_err"],
+            n768["bf16_rows_f32_bf16_views_max_abs_err"],
+        ),
         "tolerance": K1_TOL,
-        "checked": "both row-weight modes (int8 on uint8 views), every dtype, cases " + ", ".join(k["cases"]),
+        "checked": "every row-weight mode (f32, bf16, int8 on uint8 views), every dtype, cases "
+        + ", ".join(k["cases"]),
         **k["n4"],
         "shape": "N=4 P=9216 uint8 512x640 (valid 480x636): the sequential path",
         "n96": dict(k["n96"], shape="N=96: the non-pipelined lockstep frame"),

@@ -165,25 +165,34 @@ def _imports(path: Path):
             yield node.module
 
 
+DEMO_MODULES = ("__init__", "detector_2d", "main", "pipeline", "stereo_rig", "unity_udp")
+
+
 def test_port_imports_no_jax():
-    """No module of the port, and not chip_smoke.py, imports JAX or the JAX package."""
+    """No module of the port (its live demo, ``apps/demo/``, included), and
+    not chip_smoke.py, imports JAX or the JAX package."""
     files = sorted((ROOT / "absolutetrack_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    demo = ROOT / "absolutetrack_tpu_torch" / "apps" / "demo"
+    assert {demo / f"{m}.py" for m in DEMO_MODULES} <= set(files)
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] not in ("jax", "jaxlib", "absolutetrack_tpu"), f"{path}: imports {name}"
 
 
 def test_port_loads_without_jax():
-    """Importing every port module in a fresh interpreter pulls in no JAX."""
+    """Importing every port module in a fresh interpreter pulls in no JAX;
+    the demo's optional capture and detector packages (cv2, mediapipe, av)
+    load only when a source or detector that needs them is built."""
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in (ROOT / "absolutetrack_tpu_torch").rglob("*.py")
     )
+    assert {f"absolutetrack_tpu_torch.apps.demo.{m}".removesuffix(".__init__") for m in DEMO_MODULES} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r} + ['chip_smoke']: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'absolutetrack_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'absolutetrack_tpu', 'cv2', 'mediapipe', 'av')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

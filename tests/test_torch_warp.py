@@ -6,8 +6,10 @@ is the reference sampler. Tolerances:
 * coordinate planes: 1e-3 px (f32 chains of ~600 px values);
 * plain sampler vs the JAX gather on the same coordinates: 1e-4 on the
   0..255 scale (the same f32 operations in the same order);
-* plain sampler vs the Pallas kernels in interpret mode: 1.1, because those
-  round the row weights to bf16 (as ``tests/test_pallas_warp.py`` holds them);
+* plain sampler vs the Pallas kernels in interpret mode: 1.1 in the f32
+  row mode, because those round the row weights to bf16 (as
+  ``tests/test_pallas_warp.py`` holds them); the int8 and bf16 row modes
+  are held to far less (see their sections below);
 * whole ``warp_perspective_crop``: 0.05, since coordinates that differ by
   an f32 ulp (~6e-5 px at 600 px) move a sample by at most 2 * 255 * 6e-5.
 
@@ -351,4 +353,112 @@ def test_int8_switch_leaves_f32_and_bf16_sources_alone(dtype):
     assert torch.equal(on, off)
     assert not torch.equal(u8_on, u8_off)
     with pytest.raises(ValueError, match="uint8"):
-        warp_kernel.bilinear_sample_plain(imgs.to(dtype), idx, (x, y), int8_rows=True)
+        warp_kernel.bilinear_sample_plain(imgs.to(dtype), idx, (x, y), row_mode=warp_kernel.ROWS_INT8)
+
+
+# -- the bf16 row-weight mode (pallas_warp.py:174-186) ----------------------
+#
+# Tolerance of the port's bf16 rows against the Pallas kernels in interpret
+# mode: <= 1e-3 on >= 99.9% of pixels and <= 1e-2 everywhere (0..255 scale).
+# Both round the same hat weights and taps to bf16 and sum each row's two
+# exact products in f32; the banded and covering kernels add a pixel's two
+# rows or columns in another order, one f32 rounding apart. Measured: 0.0 on
+# routes a-c and on the first-row case, 1.53e-5 on d and e.
+
+
+def _assert_bf16_close(want, got):
+    err = np.abs(np.asarray(want) - np.asarray(got))
+    assert err.max() <= 1e-2, err.max()
+    assert np.mean(err <= 1e-3) >= 0.999
+
+
+def _port_bf16(imgs, idx, x, y, valid_hw=None):
+    prev = warp_kernel.set_bf16_rows(True)
+    try:
+        return warp_kernel.bilinear_sample(
+            torch.from_numpy(imgs), torch.from_numpy(idx), (torch.from_numpy(x), torch.from_numpy(y)), valid_hw
+        ).numpy()
+    finally:
+        warp_kernel.set_bf16_rows(prev)
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("route", ["a_fused", "b_narrow", "c_overflow", "d_banded", "e_covering"])
+def test_bf16_rows_match_each_pallas_route(route, dtype, monkeypatch):
+    """The Pallas kernels' default numerics on each route of the dispatch
+    (the coordinates of ``test_plain_sampler_matches_each_pallas_route``,
+    which asserts the routes): uint8 views, and f32 views that Pallas rounds
+    to bf16 (``pallas_warp.py:614-615``)."""
+    rng = np.random.default_rng(12)
+    imgs = rng.integers(0, 256, (2,) + chip_smoke.SRC_HW, dtype=np.uint8)
+    x, y = _route_coords(route, rng)
+    if dtype == "float32":
+        imgs = (imgs + rng.uniform(0, 1, imgs.shape)).astype(np.float32)
+    idx = np.array([1, 0])
+    if route == "c_overflow":
+        monkeypatch.setattr(pallas_warp, "_TWOPASS_MIN_TILES", 0)
+    crop_hw = None if route == "e_covering" else (96, 96)
+    want = np.asarray(
+        bilinear_sample_mxu(jnp.asarray(imgs), jnp.asarray(idx), (jnp.asarray(x), jnp.asarray(y)), interpret=True, crop_hw=crop_hw)
+    )
+    got = _port_bf16(imgs, idx, x, y)
+    _assert_bf16_close(want, got)
+    # the bf16 rows were taken: the f32 rows differ by the weights' rounding
+    f32 = warp_kernel.bilinear_sample(torch.from_numpy(imgs), torch.from_numpy(idx), (torch.from_numpy(x), torch.from_numpy(y))).numpy()
+    assert np.abs(f32 - want).max() > 0.1
+
+
+def test_bf16_rows_match_pallas_on_the_first_row_and_column():
+    """Coordinates in [0, 1), where ``1 - w`` rounds: Pallas weights the
+    second tap by ``1 - |1 - w|`` (not ``w``), and so does the port; with
+    ``w`` the error here would reach 0.097. Also the main path's call
+    (uint8 views padded to 512x640, the true extent passed)."""
+    rng = np.random.default_rng(3)
+    imgs = rng.integers(0, 256, (2,) + chip_smoke.SRC_HW, dtype=np.uint8)
+    gy, gx = np.mgrid[0:96, 0:96]
+    x = np.concatenate([gx[None] * 0.0101 + rng.uniform(0, 1e-4, (1, 96, 96)), 300 + gx[None] * 2.4])
+    y = np.concatenate([gy[None] * 0.0101 + rng.uniform(0, 1e-4, (1, 96, 96)), 120 + gy[None] * 2.2])
+    x, y = x.reshape(2, -1).astype(np.float32), y.reshape(2, -1).astype(np.float32)
+    idx = np.array([1, 0])
+    for crop_hw in ((96, 96), None):
+        want = bilinear_sample_mxu(jnp.asarray(imgs), jnp.asarray(idx), (jnp.asarray(x), jnp.asarray(y)), interpret=True, crop_hw=crop_hw)
+        np.testing.assert_array_equal(np.asarray(want), _port_bf16(imgs, idx, x, y))
+    pad = chip_smoke.pad_frames(imgs)
+    want = bilinear_sample_mxu(
+        jnp.asarray(pad), jnp.asarray(idx), (jnp.asarray(x), jnp.asarray(y)), interpret=True,
+        crop_hw=(96, 96), src_valid_hw=chip_smoke.SRC_HW,
+    )
+    _assert_bf16_close(want, _port_bf16(pad, idx, x, y, chip_smoke.SRC_HW))
+
+
+def test_bf16_switch_returns_the_previous_value_and_int8_wins_on_uint8():
+    """``set_bf16_rows`` returns the value it replaces; with both switches
+    on, uint8 sources take the int8 rows and f32 and bf16 sources the bf16
+    rows, as ``_tile_contrib`` picks its format."""
+    rng = np.random.default_rng(6)
+    u8 = torch.from_numpy(rng.integers(0, 256, (2, 40, 50), dtype=np.uint8))
+    x = torch.from_numpy(rng.uniform(-2, 51, (2, 300)).astype(np.float32))
+    y = torch.from_numpy(rng.uniform(-2, 41, (2, 300)).astype(np.float32))
+    idx = torch.tensor([1, 0])
+    plain = warp_kernel.bilinear_sample_plain
+    assert warp_kernel.set_bf16_rows(True) is False
+    try:
+        assert warp_kernel.set_bf16_rows(True) is True
+        assert warp_kernel.row_mode_for(u8) == warp_kernel.ROWS_BF16
+        bf16_u8 = warp_kernel.bilinear_sample(u8, idx, (x, y))
+        assert torch.equal(bf16_u8, plain(u8, idx, (x, y), row_mode=warp_kernel.ROWS_BF16))
+        prev = warp_kernel.set_int8_window(True)
+        try:
+            for src in (u8, u8.float(), u8.to(torch.bfloat16)):
+                mode = warp_kernel.ROWS_INT8 if src.dtype == torch.uint8 else warp_kernel.ROWS_BF16
+                assert warp_kernel.row_mode_for(src) == mode
+                assert torch.equal(warp_kernel.bilinear_sample(src, idx, (x, y)), plain(src, idx, (x, y), row_mode=mode))
+        finally:
+            warp_kernel.set_int8_window(prev)
+    finally:
+        assert warp_kernel.set_bf16_rows(False) is True
+    assert warp_kernel.set_bf16_rows(False) is False
+    assert warp_kernel.row_mode_for(u8) == warp_kernel.ROWS_F32
+    assert not torch.equal(bf16_u8, warp_kernel.bilinear_sample(u8, idx, (x, y)))
+    with pytest.raises(ValueError, match="row-weight mode"):
+        plain(u8, idx, (x, y), row_mode=3)
