@@ -1,6 +1,7 @@
-"""Evaluation driver (port of the library half of ``absolutetrack_tpu/apps/eval_lib.py``).
+"""Evaluation driver (port of ``absolutetrack_tpu/apps/eval_lib.py``).
 
-Tracks recordings with crops from the labelled per-frame poses and returns
+``build_model`` gives the network, from a checkpoint or seeded. The
+driver tracks recordings with crops from the labelled per-frame poses and returns
 the reference's per-sequence payload (tracked and GT FK landmarks,
 validity), hands-major, as numpy. ``track_recording`` runs one recording in
 chunks; ``track_recordings_batched`` runs R recordings in lockstep. With
@@ -9,8 +10,9 @@ chunks; ``track_recordings_batched`` runs R recordings in lockstep. With
 chunk, the ConvRNN tail stepped per frame. With ``pipelined=False`` the
 chunk runs the per-frame step. Device results stay on the device until
 every chunk has been issued. ``frames_for`` picks a recording's frames
-(its video, else a synthetic renderer). The CLI apps and sharding over
-several cards (``mesh=``) are not ported yet.
+(its video, else a synthetic renderer). The eval CLIs
+(``run_eval_known_skeleton``, ``run_eval_unknown_skeleton``) drive it;
+sharding over several cards (``mesh=``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ import torch
 from ..geometry import camera as cam
 from ..kinematics.hand_model import HandModel, stack_hand_models
 from ..kinematics.skinning import landmarks_from_hand_pose
+from ..models.checkpoint import load_any
 from ..models.config import ModelConfig
+from ..models.params import load_jax_params
 from ..models.umetrack import UmeTrackModel
 from ..tracker.batched import BatchedTracker
 from ..tracker.pipelined import StageHook, stack_results, track_chunk_eval, track_chunk_eval_batched
@@ -45,10 +49,12 @@ NUM_LANDMARKS = 21
 def build_model(
     checkpoint: Optional[str] = None, cfg: ModelConfig = ModelConfig(), seed: int = 0, device=None
 ) -> UmeTrackModel:
-    """The network with seeded random weights, on ``cuda`` unless ``device``
-    is given; ``cfg=ModelConfig.serving()`` gives the bf16 serving trunk."""
+    """The network on ``cuda`` unless ``device`` is given, with the weights of
+    ``checkpoint`` (the reference's torch state dict or a flax-msgpack param
+    file, ``models/checkpoint.py::load_any``) or, without one, seeded random
+    weights; ``cfg=ModelConfig.serving()`` gives the bf16 serving trunk."""
     if checkpoint:
-        raise NotImplementedError("loading a checkpoint is not ported yet")
+        return load_jax_params(load_any(checkpoint, cfg), cfg, device=device)
     return UmeTrackModel(cfg, device=device, generator=torch.Generator().manual_seed(seed))
 
 

@@ -19,8 +19,12 @@ from .hand_model import (
 
 def so3_exp(w: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Rodrigues' formula for axis-angle vectors (..., 3) -> (..., 3, 3),
-    with Taylor guards at theta -> 0."""
-    theta2 = torch.sum(w * w, dim=-1)
+    with Taylor guards at theta -> 0.
+
+    The angle terms keep a trailing axis of 1: under ``torch.func`` a
+    single vector's 0-d terms would meet Python scalars, where forward
+    mode promotes the tangent to float64 (PyTorch 2.13)."""
+    theta2 = torch.sum(w * w, dim=-1, keepdim=True)
     small = theta2 < eps
     theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
     theta = torch.sqrt(theta2_safe)
@@ -38,7 +42,7 @@ def so3_exp(w: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
         dim=-2,
     )
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(k.shape)
-    return eye + sin_t[..., None, None] * k + cos_t[..., None, None] * torch.matmul(k, k)
+    return eye + sin_t[..., None] * k + cos_t[..., None] * torch.matmul(k, k)
 
 
 def _compose_rt(r1, t1, r2, t2):

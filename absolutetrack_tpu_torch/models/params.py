@@ -3,7 +3,7 @@
 The JAX param tree (``absolutetrack_tpu.models.umetrack.init_umetrack_params``
 or a converted checkpoint) is nested dicts and lists of arrays: HWIO conv
 weights, (in, out) linear weights, BN already folded. Convs become OIHW,
-linear weights are transposed.
+linear weights are transposed; ``export_jax_params`` goes back.
 """
 
 from __future__ import annotations
@@ -78,3 +78,42 @@ def load_jax_params(tree: dict, cfg: ModelConfig = ModelConfig(), device=None) -
     _regressor(model.regressor_k, tree["regressor_k"], "regressor_k")
     _regressor(model.regressor_u, tree["regressor_u"], "regressor_u")
     return model.to(resolve_device(device))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _conv_tree(c: nn.Conv2d) -> dict:
+    return {"w": _np(c.weight).transpose(2, 3, 1, 0), "b": _np(c.bias)}
+
+
+def _block_tree(blk: BasicBlock) -> dict:
+    out = {"conv1": _conv_tree(blk.conv1), "conv2": _conv_tree(blk.conv2)}
+    if blk.downsample is not None:
+        out["downsample"] = _conv_tree(blk.downsample)
+    return out
+
+
+def _regressor_tree(reg) -> dict:
+    return {"blocks": [_block_tree(b) for b in reg.blocks], "out": _conv_tree(reg.out)}
+
+
+def export_jax_params(model: UmeTrackModel) -> dict:
+    """The inverse of ``load_jax_params``: the model's weights as a JAX param
+    tree (float32 numpy, HWIO convs, (in, out) linear weights), keys in the
+    order of the JAX package's ``init_umetrack_params``."""
+    bb = model.backbone
+    backbone = {"stem": _conv_tree(bb.stem)}
+    for si, stage in enumerate(bb.stages):
+        backbone[f"stage{si}"] = [_block_tree(blk) for blk in stage]
+    backbone["proj"] = _conv_tree(bb.proj)
+    fc = model.skeleton_encoder.fc
+    return {
+        "backbone": backbone,
+        "fusion": {"blocks": [_conv_tree(c) for c in model.fusion.blocks], "final": _conv_tree(model.fusion.final)},
+        "temporal": {"blocks": [_conv_tree(c) for c in model.temporal.blocks]},
+        "skeleton_encoder": {"fc": {"w": _np(fc.weight).T, "b": _np(fc.bias)}},
+        "regressor_k": _regressor_tree(model.regressor_k),
+        "regressor_u": _regressor_tree(model.regressor_u),
+    }

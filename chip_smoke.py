@@ -9,7 +9,7 @@ path's shape (4 slots x 96x96), at the non-pipelined lockstep frame's
 (24 recordings x 4 slots, 96 slots) and on edge cases (flat planes,
 crop rows that are no multiple of 8, planes off a 16-byte boundary, one
 slot, 70,000 slots), timing the two main shapes by CUDA-graph replay
-(device time) and by eager calls. Then it drives two paths at full
+(device time) and by eager calls. Then it drives four paths at full
 ``ModelConfig()`` width with TF32 off, K1's launches counted from 0 just
 before each:
 
@@ -34,10 +34,21 @@ before each:
   ``run_pipeline``'s, the device's busy time; each precision against the
   port's CPU run (serving end to end and, on the same inputs, conv by conv
   and its tail: ``serving_stages``), serving against parity, and one
-  replay through the CLI (``main``).
+  replay through the CLI (``main``);
+* protocol (``protocol_phase``): the evaluation protocol from a checkpoint
+  file to the metrics table: a reference-named state dict written as a
+  ``.pt``, loaded by ``build_model``, saved and read back bit-equal; both
+  eval CLIs over a label tree of 4 recordings x 32 frames with mesh frames
+  (known skeleton one recording at a time, K1 at N=32 a chunk, and in
+  lockstep, N=128; unknown skeleton in lockstep with the mean and the
+  Gauss-Newton calibration); ``load_eval``'s metrics of each run;
+  lockstep against sequential, one recording against the port's CPU run,
+  the GN window card against CPU, a serving run (K1's bf16 rows at N=32)
+  and K1 at N=32 and N=128 against its plain version, with its times.
 
 Prints the card's name and power limit first, one ``{"path": ...}``, one
-``{"lockstep": ...}``, one ``{"demo": ...}`` and one ``{"kernels": [...]}`` line and, last,
+``{"lockstep": ...}``, one ``{"demo": ...}``, one ``{"protocol": ...}`` and
+one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``. Any failed check raises; without a CUDA
 device, or without the port beside it, it exits non-zero and prints no
 result.
@@ -87,6 +98,11 @@ SERVING_CPU_ANGLE = ANGLE_TOL
 SERVING_CONV_BIT_EQUAL = 0.998  # the least share of a conv's bf16 outputs bit-equal to the CPU's
 SERVING_TAIL_WRIST_MM = 1e-3  # the tail (ConvRNN, regressor, decode) from the same features
 SERVING_TAIL_ANGLE = 1e-6
+PROTOCOL_RECORDINGS = 4  # the label tree of the protocol phase
+PROTOCOL_FRAMES = 32  # per recording: four chunks
+PROTOCOL_CPU_FRAMES = 8  # one recording, the card against the port's CPU run
+GN_LOG_SCALE_TOL = 1e-5  # the GN window's log-scale, card against CPU
+GN_RESIDUAL_TOL_MM = 1e-3  # its final mean landmark residual
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 
@@ -670,8 +686,8 @@ def k1_error(images, ii, xs, ys, valid_hw, row_mode=0) -> float:
 
 
 def k1_timings(images, ii, xs, ys, iters: int = 100) -> dict:
-    """K1's device time at one shape (CUDA-graph replay) in its three
-    row-weight modes, beside its bound, its plain version's time (f32 and
+    """K1's device time at one shape (CUDA-graph replay) in its row-weight
+    modes (int8 on uint8 views only), beside its bound, its plain version's time (f32 and
     bf16 rows) and ``grid_sample``'s, and the eager calls'."""
     import torch
     from torch.nn import functional as F
@@ -705,7 +721,8 @@ def k1_timings(images, ii, xs, ys, iters: int = 100) -> dict:
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS
     few = max(iters // 5, 2)
     out = dict(
-        ms=_device_ms(k1, iters), int8_ms=_device_ms(k1_int8, iters), bf16_ms=_device_ms(k1_bf16, iters),
+        ms=_device_ms(k1, iters), bf16_ms=_device_ms(k1_bf16, iters),
+        int8_ms=_device_ms(k1_int8, iters) if images.dtype == torch.uint8 else None,  # int8 rows need uint8 views
         plain_ms=_device_ms(plain, few), bf16_plain_ms=_device_ms(plain_bf16, few),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -1216,6 +1233,80 @@ def with_biases(model, seed: int, std: float = 0.05):
     return model
 
 
+def reference_state_dict(cfg, seed: int = 0, head_scale: float = 0.02, memory_scale: float = 0.1) -> dict:
+    """A seeded state dict with the reference checkpoint's names and shapes
+    for ``cfg`` (the inverse of ``models/weights.py``'s naming): He-normal
+    convs, no bias on the ResNet convs (as torchvision's) and N(0, 0.05)
+    biases elsewhere, BatchNorms with nonzero statistics and positive
+    variances. As ``damped`` does, the regression heads' output convs are
+    drawn ``head_scale`` times smaller and the ConvRNN ``memory_scale``
+    times; the unknown-skeleton head's bias also holds the wrist template
+    (a trained head predicts well-spread wrist points), so pass 1's scales
+    stay near 1."""
+    import torch
+
+    from absolutetrack_tpu_torch.models.params import export_jax_params
+    from absolutetrack_tpu_torch.models.regressor import output_dims, wrist_rigid_template
+    from absolutetrack_tpu_torch.models.umetrack import UmeTrackModel
+
+    tree = export_jax_params(UmeTrackModel(cfg, device="cpu"))
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def normal(shape, std):
+        return std * torch.randn(shape, generator=g)
+
+    def conv(prefix, p, bias=True, scale=1.0):
+        kh, kw, i, o = p["w"].shape
+        sd[prefix + ".weight"] = normal((o, i, kh, kw), scale * math.sqrt(2.0 / (kh * kw * o)))
+        if bias:
+            sd[prefix + ".bias"] = normal((o,), 0.05 * scale)
+
+    def bn(prefix, n):
+        sd[prefix + ".weight"] = 1.0 + normal((n,), 0.1)
+        sd[prefix + ".bias"] = normal((n,), 0.1)
+        sd[prefix + ".running_mean"] = normal((n,), 0.1)
+        sd[prefix + ".running_var"] = 0.5 + torch.rand((n,), generator=g)
+        sd[prefix + ".num_batches_tracked"] = torch.tensor(1000)
+
+    def conv_bn(conv_prefix, bn_prefix, p, bias=False):
+        conv(conv_prefix, p, bias)
+        bn(bn_prefix, p["w"].shape[-1])
+
+    def block(prefix, p):
+        conv_bn(prefix + ".conv1", prefix + ".bn1", p["conv1"])
+        conv_bn(prefix + ".conv2", prefix + ".bn2", p["conv2"])
+        if "downsample" in p:
+            conv_bn(prefix + ".downsample.0", prefix + ".downsample.1", p["downsample"])
+
+    root = "_feature_extractor._image_backbone"
+    conv_bn(f"{root}.0._layers.0.0", f"{root}.0._layers.0.1", tree["backbone"]["stem"])
+    for si in range(4):
+        for bi, p in enumerate(tree["backbone"][f"stage{si}"]):
+            block(f"{root}.0._layers.{si + 1}.{bi}", p)
+    conv(f"{root}.1", tree["backbone"]["proj"])
+    root = "_feature_extractor._multi_view_fusion"
+    for i, p in enumerate(tree["fusion"]["blocks"]):
+        conv_bn(f"{root}.{3 * i}", f"{root}.{3 * i + 1}", p, bias=True)
+    conv(f"{root}.{3 * len(tree['fusion']['blocks'])}", tree["fusion"]["final"])
+    for i, p in enumerate(tree["temporal"]["blocks"]):
+        conv(f"_temporal._temporal_module.{2 * i}", p, scale=memory_scale)
+    n_in, n_out = tree["skeleton_encoder"]["fc"]["w"].shape
+    sd["_skeleton_enc._layers.0.weight"] = normal((n_out, n_in), math.sqrt(1.0 / n_in))
+    sd["_skeleton_enc._layers.0.bias"] = normal((n_out,), 0.05)
+    bn("_skeleton_enc._layers.2", cfg.n_skeleton_feature_channels)
+    for which in ("k", "u"):
+        root = f"_regressor_{which}._pose_regression_layers"
+        reg = tree[f"regressor_{which}"]
+        for i, p in enumerate(reg["blocks"]):
+            block(f"{root}.{i}", p)
+        conv(f"{root}.{len(reg['blocks'])}", reg["out"], scale=head_scale)
+    r = output_dims(True, cfg.n_wrist_rigid_pts)[0]["wrist_xfs"]
+    out_bias = sd[f"_regressor_u._pose_regression_layers.{cfg.n_pose_regression_blocks}.bias"]
+    out_bias[r[0] : r[1]] += torch.from_numpy(wrist_rigid_template(cfg.n_wrist_rigid_pts).reshape(-1))
+    return sd
+
+
 def demo_phase(seed: int) -> dict:
     """The live demo in replay mode at full width on the card, parity and
     serving, and its checks (see the module's docstring)."""
@@ -1350,6 +1441,324 @@ def demo_phase(seed: int) -> dict:
     )
 
 
+def protocol_tree(root: Path, scene: dict, n_recordings: int, length: int) -> tuple:
+    """Write the eval protocol's inputs under ``root``: a label tree
+    ``data/testing/user00/recording_0{i}.json`` of ``n_recordings``
+    recordings of ``length`` frames, recording i starting at frame i of
+    the scene, and the scene's hand model as the generic hand-model JSON.
+    Returns (the tree's root, the hand model's path)."""
+    user = root / "data" / "testing" / "user00"
+    user.mkdir(parents=True, exist_ok=True)
+    for i in range(n_recordings):
+        (user / f"recording_{i:02d}.json").write_text(json.dumps(labels_json(scene, i, length)))
+    generic = root / "generic_hand_model.json"
+    generic.write_text(json.dumps({k: np.asarray(v).tolist() for k, v in scene["hand_model"].items()}))
+    return root / "data", generic
+
+
+def read_results(out_dir) -> dict:
+    """The eval apps' result pickles under ``out_dir``, by relative name."""
+    import pickle
+
+    out_dir = Path(out_dir)
+    return {str(p.relative_to(out_dir)): pickle.loads(p.read_bytes()) for p in sorted(out_dir.rglob("*.npy"))}
+
+
+def results_error(a: dict, b: dict) -> float:
+    """The largest tracked-landmark distance (mm) between two runs' results,
+    over each recording's frames that both hold, where valid; raises when
+    the recordings or their validity differ."""
+    if sorted(a) != sorted(b):
+        raise RuntimeError(f"result sets differ: {sorted(a)} vs {sorted(b)}")
+    err = 0.0
+    for name in a:
+        n = min(a[name]["valid_tracking"].shape[1], b[name]["valid_tracking"].shape[1])
+        va, vb = a[name]["valid_tracking"][:, :n], b[name]["valid_tracking"][:, :n]
+        if not np.array_equal(va, vb) or not va.any():
+            raise RuntimeError(f"{name}: validity differs, or no valid hand")
+        d = np.linalg.norm(a[name]["tracked_keypoints"][:, :n] - b[name]["tracked_keypoints"][:, :n], axis=-1)
+        err = max(err, float(d[va].max()))
+    return err
+
+
+def protocol_phase(seed: int, device: str = "cuda", n_frames: int = PROTOCOL_FRAMES, tiny: bool = False) -> dict:
+    """The eval protocol from a checkpoint file to the metrics table, at
+    full ``ModelConfig()`` width on the card (``tiny`` and ``device="cpu"``:
+    its CPU rehearsal): a reference-named state dict written as a zip
+    ``.pt``, read through ``build_model``, saved with ``save_params`` and
+    read back bit-equal; both eval CLIs over a label tree of
+    ``PROTOCOL_RECORDINGS`` recordings (known skeleton one recording at a
+    time and four in lockstep, unknown skeleton in lockstep with the mean
+    and the Gauss-Newton calibration); ``load_eval.aggregate_metrics`` of
+    each; lockstep against sequential; on the card also one recording
+    against the port's CPU run, the GN window card against CPU, a serving
+    run (K1's bf16 rows) and K1 at the protocol's shapes against its plain
+    version, with K1's launches counted from 0 before each CLI run."""
+    import tempfile
+
+    import torch
+
+    from absolutetrack_tpu_torch.apps import eval_lib, load_eval
+    from absolutetrack_tpu_torch.apps import run_eval_known_skeleton as known
+    from absolutetrack_tpu_torch.apps import run_eval_unknown_skeleton as unknown
+    from absolutetrack_tpu_torch.models.checkpoint import load_params, save_params
+    from absolutetrack_tpu_torch.models.config import ModelConfig
+    from absolutetrack_tpu_torch.models.params import load_jax_params
+    from absolutetrack_tpu_torch.ops import warp_kernel
+
+    on_card = device == "cuda"
+    r = PROTOCOL_RECORDINGS
+    cfg = ModelConfig.tiny() if tiny else ModelConfig()
+    p = cfg.input_size[0] * cfg.input_size[1]
+    chunks = -(-n_frames // LOCKSTEP_CHUNK)
+    calib_chunks = -(-min(unknown.CALIB_FRAMES, n_frames) // LOCKSTEP_CHUNK)
+    slots = LOCKSTEP_CHUNK * 4  # a recording's crop slots a chunk
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        # 1. the checkpoint: reference names -> .pt -> build_model -> save_params -> load_params
+        pt = root / "reference.pt"
+        torch.save(reference_state_dict(cfg, seed), pt)
+        model = eval_lib.build_model(str(pt), cfg, device=device)
+        native = root / "params.msgpack"
+        save_params(str(native), model)
+        back = load_jax_params(load_params(str(native), cfg), cfg, device=device)
+        mine, theirs = model.state_dict(), back.state_dict()
+        if sorted(mine) != sorted(theirs) or not all(torch.equal(mine[k], theirs[k]) for k in mine):
+            raise RuntimeError("the weights read back from save_params are not bit-equal")
+        del model, back, mine, theirs
+
+        # 2. the label tree
+        data, generic_path = protocol_tree(root, build_scene(seed, n_frames + r - 1, mesh=True), r, n_frames)
+        arch = ["--tiny-arch"] if tiny else []
+        runs = {}
+
+        def run(name, module, argv, tracked, expect_launches):
+            out = root / name
+            warp_kernel.K1.reset_counts()
+            clock = _RenderClock(eval_lib)
+            with clock:
+                wall, lines = _cli(module, ["--output-dir", str(out), "--checkpoint", str(pt), "--override"] + arch + argv)
+            shapes, modes = dict(warp_kernel.K1.shapes), dict(warp_kernel.K1.modes)
+            if on_card:  # the card's f32 model samples with f32 rows
+                want = {(n, p): k for n, k in expect_launches.items()}
+                if shapes != want or modes != {"f32": sum(want.values())}:
+                    raise RuntimeError(f"{name}: K1 launches by shape {shapes}, modes {modes}; want {want} f32")
+            results = read_results(out)
+            for rel, res in results.items():
+                for key in ("tracked_keypoints", "gt_keypoints"):
+                    if not np.isfinite(res[key]).all():
+                        raise RuntimeError(f"{name} {rel}: non-finite {key}")
+                if not res["valid_tracking"].any():
+                    raise RuntimeError(f"{name} {rel}: no hand tracked")
+            runs[name] = dict(
+                report=dict(
+                    wall_s=wall, frames_tracked=tracked, frames_per_s=tracked / wall,
+                    frames_rendered=clock.frames, render_s=clock.seconds, render_share=clock.seconds / wall,
+                    k1_launches={f"N={n}": k for (n, _), k in sorted(shapes.items())}, k1_row_modes=modes,
+                    metrics=load_eval.aggregate_metrics(str(out)), last_line=lines[-1],
+                ),
+                results=results,
+            )
+
+        common = ["--input-dir", str(data), "--torch-device", device]
+        unknown_args = common + ["--batch-recordings", str(r), "--generic-hand-model", str(generic_path)]
+        two_pass = r * (min(unknown.CALIB_FRAMES, n_frames) + n_frames)
+        # 3. known skeleton: one recording at a time (N=32 a chunk), then four in lockstep (N=128)
+        run("known_b1", known, common + ["--batch-recordings", "1"], r * n_frames, {slots: r * chunks})
+        run("known_b4", known, common + ["--batch-recordings", str(r)], r * n_frames, {r * slots: chunks})
+        # 4. unknown skeleton, both passes in lockstep
+        for calib in ("mean", "gn"):
+            run(f"unknown_{calib}", unknown, unknown_args + ["--calib-mode", calib], two_pass,
+                {r * slots: calib_chunks + chunks})
+        lockstep_err = results_error(runs["known_b1"]["results"], runs["known_b4"]["results"])
+        if lockstep_err > LANDMARK_TOL_MM:
+            raise RuntimeError(f"known skeleton lockstep vs sequential: {lockstep_err} mm")
+        scales = {
+            calib: [res["calibrated_scale"] for res in runs[f"unknown_{calib}"]["results"].values()]
+            for calib in ("mean", "gn")
+        }
+        if not all(0.5 < s < 2.0 for v in scales.values() for s in v):
+            raise RuntimeError(f"calibrated scales far from 1: {scales}")
+
+        report = dict(
+            recordings=r, frames_per_recording=n_frames, chunk=LOCKSTEP_CHUNK,
+            checkpoint_round_trip_bit_equal=True, checkpoint_bytes=native.stat().st_size,
+            calibrated_scales=scales, known_lockstep_vs_sequential_max_err_mm=lockstep_err,
+        )
+        if on_card:
+            report.update(_protocol_on_card(root, data, generic_path, pt, runs, common, slots, chunks, p))
+        report["runs"] = {name: v["report"] for name, v in runs.items()}
+    counted = [v["k1_launches"] for v in report["runs"].values()] + ([report["serving"]["k1_launches"]] if on_card else [])
+    report["k1_launches"] = sum(sum(c.values()) for c in counted)
+    return report
+
+
+class _RenderClock:
+    """Times the host's rendering inside an eval run: while it is entered,
+    every frame source that ``eval_lib.frames_for`` hands out counts the
+    seconds spent producing its frames."""
+
+    def __init__(self, eval_lib):
+        self.eval_lib, self.seconds, self.frames = eval_lib, 0.0, 0
+
+    def _timed(self, source):
+        it = iter(source)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                frame = next(it)
+            except StopIteration:
+                return
+            self.seconds += time.perf_counter() - t0
+            self.frames += 1
+            yield frame
+
+    def __enter__(self):
+        self.original = self.eval_lib.frames_for
+        self.eval_lib.frames_for = lambda *a, **k: self._timed(self.original(*a, **k))
+        return self
+
+    def __exit__(self, *exc):
+        self.eval_lib.frames_for = self.original
+
+
+def _cli(module, argv) -> tuple:
+    """(wall seconds, printed lines) of one ``module.main(argv)``."""
+    import io
+    from contextlib import redirect_stdout
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(out):
+        module.main(argv)
+    return time.perf_counter() - t0, out.getvalue().splitlines()
+
+
+def _protocol_on_card(root, data, generic_path, pt, runs, common, slots, chunks, p) -> dict:
+    """The protocol phase's checks that need the card: one recording against
+    the port's CPU run, the device's busy time, a serving run, the GN window
+    card against CPU, and K1 at the protocol's shapes (N = 32 and 128 crop slots) against its plain
+    version in every row mode, with its times."""
+    import shutil
+
+    import torch
+
+    from absolutetrack_tpu_torch.apps import eval_lib
+    from absolutetrack_tpu_torch.apps import run_eval_known_skeleton as known
+    from absolutetrack_tpu_torch.apps import run_eval_unknown_skeleton as unknown
+    from absolutetrack_tpu_torch.kinematics.hand_model import load_hand_model_json
+    from absolutetrack_tpu_torch.models.config import ModelConfig
+    from absolutetrack_tpu_torch.ops import gauss_newton, warp_kernel
+    from absolutetrack_tpu_torch.tracker.video_data import load_labels
+
+    out = {}
+    # one recording: the card's sequential pickle against the port's CPU run
+    one = root / "one" / "testing" / "user00"
+    one.mkdir(parents=True)
+    first = sorted((Path(data) / "testing" / "user00").glob("*.json"))[0]
+    shutil.copy(first, one / first.name)
+    one_root = ["--input-dir", str(root / "one"), "--checkpoint", str(pt), "--override"]
+    wall, _ = _cli(known, one_root + ["--output-dir", str(root / "cpu"), "--torch-device", "cpu",
+                                      "--max-frames", str(PROTOCOL_CPU_FRAMES)])
+    card = {k: v for k, v in runs["known_b1"]["results"].items() if k.startswith("testing/user00/" + first.stem)}
+    cpu_err = results_error(card, read_results(root / "cpu"))
+    if cpu_err > LANDMARK_TOL_MM:
+        raise RuntimeError(f"protocol card vs CPU: {cpu_err} mm")
+    out.update(cpu_frames=PROTOCOL_CPU_FRAMES, cpu_wall_s=wall, vs_cpu_max_err_mm=cpu_err)
+
+    # the device's busy time a frame over one chunk of each known-skeleton
+    # run (torch.profiler), and its idle share of the counted run's wall time
+    r = len(runs["known_b1"]["results"])
+    for name, batch in (("known_b1", 1), ("known_b4", r)):
+        argv = common + ["--checkpoint", str(pt), "--override", "--output-dir", str(root / "busy"),
+                         "--batch-recordings", str(batch), "--max-frames", str(LOCKSTEP_CHUNK)]
+        busy = device_busy(lambda: _cli(known, argv), r * LOCKSTEP_CHUNK)
+        rep = runs[name]["report"]
+        rep.update(busy, device_idle_share=1 - busy["device_busy_ms_per_frame"] * rep["frames_tracked"] / 1e3 / rep["wall_s"])
+
+    # serving: K1's bf16 rows at N=32
+    warp_kernel.K1.reset_counts()
+    wall, _ = _cli(known, one_root + ["--output-dir", str(root / "serving"), "--torch-device", "cuda",
+                                      "--precision", "serving"])
+    want = ({(slots, p): chunks}, {"bf16": chunks})
+    if (dict(warp_kernel.K1.shapes), dict(warp_kernel.K1.modes)) != want:
+        raise RuntimeError(f"serving: K1 {dict(warp_kernel.K1.shapes)} {dict(warp_kernel.K1.modes)}; want {want}")
+    serving = read_results(root / "serving")
+    serving_err = results_error(card, serving)
+    frames = sum(res["valid_tracking"].shape[1] for res in serving.values())
+    out["serving"] = dict(wall_s=wall, frames_per_s=frames / wall,
+                          k1_launches={f"N={slots}": chunks}, k1_row_modes={"bf16": chunks},
+                          vs_parity_max_err_mm=serving_err)
+
+    # the GN window (T = CALIB_FRAMES, 6 iterations) on the same targets, card against CPU
+    model = eval_lib.build_model(str(pt), ModelConfig(), device="cuda")
+    labels = [load_labels(lf) for lf in known.find_label_files(str(data))]
+    generic = load_hand_model_json(str(generic_path))
+    calib = eval_lib.track_recording(
+        model, labels[0], eval_lib.frames_for(labels[0], None), hand_model_mm=generic,
+        calibrate_scale=True, max_frames=unknown.CALIB_FRAMES,
+    )
+    window = unknown.gn_window_inputs(generic, calib, 0, "cpu")
+    if window is None:
+        raise RuntimeError("GN window: fewer than 2 valid frames")
+    fits, ms = {}, {}
+    for dev in ("cuda", "cpu"):
+        args = [x.to(dev) for x in window]
+        hand = generic.to(dev)
+
+        def fit():
+            res = gauss_newton.calibrate_scale_window(hand, *args[:3], frame_mask=args[3], iters=6)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            return res
+
+        fit()  # warm-up
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fits[dev] = fit()
+        ms[dev] = (time.perf_counter() - t0) / 3 * 1e3
+    gn_log_err = abs(float(fits["cuda"].log_scale) - float(fits["cpu"].log_scale))
+    gn_res_err = abs(float(fits["cuda"].residual) - float(fits["cpu"].residual))
+    if not gn_log_err <= GN_LOG_SCALE_TOL or not gn_res_err <= GN_RESIDUAL_TOL_MM:
+        raise RuntimeError(f"GN window card vs CPU: log-scale {gn_log_err}, residual {gn_res_err} mm")
+    out["gn_window"] = dict(
+        frames=int(window[0].shape[0]), iterations=6, card_ms=ms["cuda"], cpu_ms=ms["cpu"],
+        log_scale=float(fits["cuda"].log_scale), residual_mm=float(fits["cuda"].residual),
+        log_scale_err=gn_log_err, log_scale_tol=GN_LOG_SCALE_TOL,
+        residual_err_mm=gn_res_err, residual_tol_mm=GN_RESIDUAL_TOL_MM,
+    )
+
+    # K1 at the protocol's shapes against its plain version, and its times
+    serving_model = eval_lib.build_model(str(pt), ModelConfig.serving(), device="cuda")
+    recorder = _RecordCalls(warp_kernel.K1)
+    warp_kernel.K1 = recorder
+    try:
+        for net in (model, serving_model):
+            eval_lib.track_recording(net, labels[0], eval_lib.frames_for(labels[0], None), max_frames=LOCKSTEP_CHUNK)
+        eval_lib.track_recordings_batched(
+            model, [(lab, eval_lib.frames_for(lab, None)) for lab in labels], max_frames=LOCKSTEP_CHUNK
+        )
+    finally:
+        warp_kernel.K1 = recorder.kernel
+    calls = {}
+    for images, ii, xs, ys, valid_hw, mode in recorder.calls:
+        calls.setdefault((xs.shape[0], warp_kernel.ROW_MODE_NAMES[int(mode)]), (images, ii, xs, ys, valid_hw))
+    want = {(slots, "f32"), (len(labels) * slots, "f32"), (slots, "bf16")}
+    if set(calls) != want:
+        raise RuntimeError(f"K1 calls recorded at {sorted(calls)}; want {sorted(want)}")
+    k1 = {}
+    for (n, mode), (images, ii, xs, ys, valid_hw) in sorted(calls.items()):
+        err = max(k1_error(images, ii, xs, ys, valid_hw, m) for m in row_modes(images.dtype))
+        if err > K1_TOL:
+            raise RuntimeError(f"K1 at N={n} ({mode} run): max |err| {err} > {K1_TOL}")
+        if mode == "f32":
+            k1[f"n{n}"] = dict(k1_timings(images, ii, xs, ys, iters=50), max_abs_err=err, source_dtype=str(images.dtype))
+        else:
+            k1[f"n{n}_serving_max_abs_err"] = err
+    out["k1"] = k1
+    return out
+
+
 def main(seed: int = 0) -> int:
     import torch
 
@@ -1383,11 +1792,13 @@ def main(seed: int = 0) -> int:
     del ts
     lockstep = lockstep_phase(seed)
     demo = demo_phase(seed)
+    protocol = protocol_phase(seed)
 
     n768 = lockstep["k1_n768"]
     print(json.dumps({"path": path, "card": smi}))
     print(json.dumps({"lockstep": lockstep, "card": smi}))
     print(json.dumps({"demo": demo, "card": smi}))
+    print(json.dumps({"protocol": protocol, "card": smi}))
     print(json.dumps({"kernels": [{
         "name": "bilinear_sample",
         "route": "cuda",
@@ -1398,15 +1809,18 @@ def main(seed: int = 0) -> int:
                     "pallas_warp.py:127-173 (int8 row mix, row f); "
                     "pallas_warp.py:174-186 (bf16 row mix, row g)",
         "launches": path["k1_launches"] + lockstep["k1_launches"]
-        + demo["parity"]["k1_launches"] + demo["serving"]["k1_launches"],
+        + demo["parity"]["k1_launches"] + demo["serving"]["k1_launches"] + protocol["k1_launches"],
         "launches_by_path": {
             "sequential": path["k1_launches"], "lockstep": lockstep["k1_launches"],
             "demo_parity_f32_rows": demo["parity"]["k1_launches"],
             "demo_serving_bf16_rows": demo["serving"]["k1_launches"],
+            **{f"protocol_{name}": run["k1_launches"] for name, run in protocol["runs"].items()},
+            "protocol_serving_bf16_rows": protocol["serving"]["k1_launches"],
         },
         "max_abs_err": max(
             k["max_abs_err"], n768["max_abs_err"], n768["n1024_max_abs_err"],
             n768["bf16_rows_f32_bf16_views_max_abs_err"],
+            *(v["max_abs_err"] if isinstance(v, dict) else v for v in protocol["k1"].values()),
         ),
         "tolerance": K1_TOL,
         "checked": "every row-weight mode (f32, bf16, int8 on uint8 views), every dtype, cases "
@@ -1415,6 +1829,8 @@ def main(seed: int = 0) -> int:
         "shape": "N=4 P=9216 uint8 512x640 (valid 480x636): the sequential path",
         "n96": dict(k["n96"], shape="N=96: the non-pipelined lockstep frame"),
         "n768": dict(n768, shape="N=768: the pipelined lockstep chunk (24 recordings x 8 frames x 4 slots)"),
+        "n32": dict(protocol["k1"]["n32"], shape="N=32: the eval protocol's chunk, one recording (8 frames x 4 slots)"),
+        "n128": dict(protocol["k1"]["n128"], shape="N=128: the eval protocol's lockstep chunk (4 recordings)"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

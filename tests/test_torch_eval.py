@@ -179,7 +179,8 @@ def test_unported_options_raise(recordings, twin):
     _, model = twin
     with pytest.raises(NotImplementedError, match="mesh"):
         eval_lib.track_recordings_batched(model, [(recordings[0][1], recordings[0][2])], mesh=object())
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    # a checkpoint is read now (tests/test_torch_checkpoint.py); a missing one is an error
+    with pytest.raises(FileNotFoundError):
         eval_lib.build_model("weights.pt", CFG, device="cpu")
     built = eval_lib.build_model(cfg=CFG, seed=3, device="cpu")
     assert built.device.type == "cpu" and built.cfg == CFG

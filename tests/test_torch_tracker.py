@@ -166,33 +166,41 @@ def _imports(path: Path):
 
 
 DEMO_MODULES = ("__init__", "detector_2d", "main", "pipeline", "stereo_rig", "unity_udp")
+# the evaluation protocol's modules: the checkpoint codec and converter, the eval CLIs, GN
+PROTOCOL_MODULES = (
+    "apps/load_eval", "apps/run_eval_known_skeleton", "apps/run_eval_unknown_skeleton", "kinematics/metrics",
+    "models/checkpoint", "models/weights", "ops/gauss_newton", "utils/flax_msgpack",
+)
 
 
 def test_port_imports_no_jax():
     """No module of the port (its live demo, ``apps/demo/``, included), and
-    not chip_smoke.py, imports JAX or the JAX package."""
+    not chip_smoke.py, imports JAX, the JAX package, flax or msgpack (the
+    card's machine has neither; checkpoints go through the port's codec)."""
     files = sorted((ROOT / "absolutetrack_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     demo = ROOT / "absolutetrack_tpu_torch" / "apps" / "demo"
     assert {demo / f"{m}.py" for m in DEMO_MODULES} <= set(files)
+    assert {ROOT / "absolutetrack_tpu_torch" / f"{m}.py" for m in PROTOCOL_MODULES} <= set(files)
     for path in files:
         for name in _imports(path):
-            assert name.split(".")[0] not in ("jax", "jaxlib", "absolutetrack_tpu"), f"{path}: imports {name}"
+            assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "msgpack", "absolutetrack_tpu"), f"{path}: imports {name}"
 
 
 def test_port_loads_without_jax():
-    """Importing every port module in a fresh interpreter pulls in no JAX;
-    the demo's optional capture and detector packages (cv2, mediapipe, av)
+    """Importing every port module in a fresh interpreter pulls in no JAX,
+    flax or msgpack; the demo's optional capture and detector packages (cv2, mediapipe, av)
     load only when a source or detector that needs them is built."""
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in (ROOT / "absolutetrack_tpu_torch").rglob("*.py")
     )
     assert {f"absolutetrack_tpu_torch.apps.demo.{m}".removesuffix(".__init__") for m in DEMO_MODULES} <= set(mods)
+    assert {"absolutetrack_tpu_torch." + m.replace("/", ".") for m in PROTOCOL_MODULES} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r} + ['chip_smoke']: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'absolutetrack_tpu', 'cv2', 'mediapipe', 'av')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msgpack', 'absolutetrack_tpu', 'cv2', 'mediapipe', 'av')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
