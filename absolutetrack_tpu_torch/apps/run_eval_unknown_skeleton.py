@@ -34,6 +34,7 @@ from ..kinematics.hand_model import HandModel, load_hand_model_json, scaled_hand
 from ..kinematics.skinning import skin_landmarks
 from ..ops.gauss_newton import calibrate_scale_window
 from ..tracker.video_data import load_labels
+from ..utils.runtime import resolve_device
 
 CALIB_FRAMES = 30  # the reference's calibration window
 
@@ -76,10 +77,12 @@ def gn_window_inputs(generic: HandModel, calib, hand_idx: int, device):
     return targets, ja, wr, torch.as_tensor(mask, dtype=torch.float32, device=device)
 
 
-def gn_window_scale(generic: HandModel, calib, hand_idx: int, device="cpu") -> float | None:
+def gn_window_scale(generic: HandModel, calib, hand_idx: int, device=None) -> float | None:
     """Windowed Gauss-Newton scale calibration of one hand: the per-frame
     poses and ONE shared log-scale refined jointly against pass 1's landmarks
-    (Schur-complement GN), in place of averaging the per-frame scales."""
+    (Schur-complement GN), in place of averaging the per-frame scales. Runs
+    on ``device`` (``cuda`` unless given)."""
+    device = resolve_device(device)
     window = gn_window_inputs(generic, calib, hand_idx, device)
     if window is None:
         return None
@@ -88,9 +91,10 @@ def gn_window_scale(generic: HandModel, calib, hand_idx: int, device="cpu") -> f
     return float(np.exp(res.log_scale.cpu().numpy()))
 
 
-def calibrated_scale_from(calib, generic: HandModel, calib_mode: str, device="cpu") -> float:
+def calibrated_scale_from(calib, generic: HandModel, calib_mode: str, device=None) -> float:
     """One recording's user scale from its pass-1 scale predictions
-    (mean / Huber-lstsq / windowed GN, see the module's docstring)."""
+    (mean / Huber-lstsq / windowed GN, see the module's docstring); GN runs
+    on ``device`` (``cuda`` unless given)."""
     if calib_mode == "gn":
         gn_scales = [s for s in (gn_window_scale(generic, calib, h, device) for h in range(2)) if s is not None]
         return float(np.mean(gn_scales)) if gn_scales else 1.0

@@ -52,6 +52,20 @@ class Camera(NamedTuple):
         return self.map(lambda x: x.to(device))
 
 
+def pinhole_camera(fx, fy, cx, cy, T_world_from_eye, width, height, device=None) -> Camera:
+    """A distortion-free camera from array-likes, as f32 tensors on ``device``."""
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    fx = f32(fx)
+    return Camera(
+        fx=fx, fy=f32(fy), cx=f32(cx), cy=f32(cy),
+        coeffs=torch.zeros(fx.shape + (8,), dtype=torch.float32, device=device),
+        T_world_from_eye=f32(T_world_from_eye), width=f32(width), height=f32(height),
+    )
+
+
 def camera_from_json(js: dict, T_world_from_eye: Optional[np.ndarray] = None):
     """One camera dict of the reference's JSON schema -> ``(Camera, kind)``
     on the CPU (keys ImageSizeX/Y, fx, fy, cx, cy, DistortionModel, k1..k6,

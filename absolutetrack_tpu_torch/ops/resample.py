@@ -2,8 +2,10 @@
 
 Coordinates come from vectorized camera math as separate x/y planes;
 sampling goes through ``warp_kernel.bilinear_sample`` (K1 on the card,
-the plain version on the CPU). ``compute_resample_matrix`` and
-``warp_homography`` serve the data layer and wait for it.
+the plain version on the CPU). ``warp_perspective_crop`` cuts fisheye
+crops through the full camera chain; ``compute_resample_matrix`` and
+``warp_homography`` warp pinhole views through one pixel homography per
+slot, for the packed-data path (``data/transform.py``).
 """
 
 from __future__ import annotations
@@ -19,9 +21,19 @@ from .warp_kernel import bilinear_sample, bilinear_sample_plain, split_coord_pla
 __all__ = [
     "bilinear_sample",
     "bilinear_sample_plain",
+    "compute_resample_matrix",
     "split_coord_planes",
+    "warp_homography",
     "warp_perspective_crop",
 ]
+
+
+def _dst_pixel_grid(size: Tuple[int, int], device=None) -> torch.Tensor:
+    """(h*w, 2) grid of the crop's (x, y) pixel centres, row-major."""
+    w, h = size
+    gx = torch.arange(w, dtype=torch.float32, device=device).repeat(h)
+    gy = torch.arange(h, dtype=torch.float32, device=device).repeat_interleave(w)
+    return torch.stack([gx, gy], dim=-1)
 
 
 def _crop_source_coords_planar(
@@ -34,10 +46,7 @@ def _crop_source_coords_planar(
     """Source-window coordinate planes (x, y), each (N, P = h*w), row-major
     over the crop: unproject through the crop camera, to world, into the
     source camera's eye space, project and distort."""
-    w, h = crop_size
-    device = crop_cameras.fx.device
-    gx = torch.arange(w, dtype=torch.float32, device=device).repeat(h)
-    gy = torch.arange(h, dtype=torch.float32, device=device).repeat_interleave(w)
+    gx, gy = _dst_pixel_grid(crop_size, crop_cameras.fx.device).unbind(-1)
 
     # pinhole crop cameras carry no distortion: unproject = normalize([q, 1])
     qx = (gx[None, :] - crop_cameras.cx[:, None]) / crop_cameras.fx[:, None]
@@ -110,3 +119,54 @@ def warp_perspective_crop(
         src_images, src_view_idx, (wx.view(n, h, w), wy.view(n, h, w)),
         src_valid_hw=src_valid_hw, bf16_rows=bf16_rows,
     )
+
+
+def compute_resample_matrix(
+    K_orig: torch.Tensor,  # (..., 3, 3)
+    T_world_to_eye_orig: torch.Tensor,  # (..., 4, 4)
+    K_new: torch.Tensor,  # (..., 3, 3)
+    T_eye_to_world_new: torch.Tensor,  # (..., 4, 4)
+) -> torch.Tensor:
+    """4x4 homography taking new-camera pixels to orig-camera pixels:
+    K_orig . W2E_orig . E2W_new . K_new^-1 lifted to 4x4, valid when both
+    cameras are pinhole."""
+
+    def lift(m3):
+        out = torch.zeros(m3.shape[:-2] + (4, 4), dtype=m3.dtype, device=m3.device)
+        out[..., :3, :3] = m3
+        out[..., 3, 3] = 1.0
+        return out
+
+    K_inv_new = torch.linalg.inv(K_new)
+    return torch.matmul(
+        torch.matmul(lift(K_orig), T_world_to_eye_orig),
+        torch.matmul(T_eye_to_world_new, lift(K_inv_new)),
+    )
+
+
+def _homography_coords(resample_xfs: torch.Tensor, out_size: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Source pixel planes (x, y), each (N, h, w), of the crop's pixels
+    through (N, 4, 4) homographies: the 3 x 3 part times the homogeneous
+    pixel, plus the translation, over its third coordinate."""
+    w, h = out_size
+    n = resample_xfs.shape[0]
+    gx, gy = _dst_pixel_grid(out_size, resample_xfs.device).unbind(-1)
+    r = resample_xfs[:, :3, :3, None]
+    t = resample_xfs[:, :3, 3, None]
+    sx, sy, sz = (r[:, i, 0] * gx + r[:, i, 1] * gy + r[:, i, 2] + t[:, i] for i in range(3))
+    return (sx / sz).view(n, h, w), (sy / sz).view(n, h, w)
+
+
+def warp_homography(
+    src_images: torch.Tensor,  # (N, H, W)
+    resample_xfs: torch.Tensor,  # (N, 4, 4) new-pixel -> orig-pixel
+    out_size: Tuple[int, int],
+    bf16_rows: bool = False,
+) -> torch.Tensor:
+    """Pinhole-to-pinhole warp of slot i from view i through its pixel
+    homography -> (N, h, w) f32, 0 where a tap falls outside
+    [0, W-1) x [0, H-1). ``bf16_rows``: sample with bf16 row weights."""
+    # (N, h, w) planes: K1 lays its gathers on the crop's rows
+    x, y = _homography_coords(resample_xfs, out_size)
+    idx = torch.arange(src_images.shape[0], device=src_images.device)
+    return bilinear_sample(src_images, idx, (x, y), bf16_rows=bf16_rows)

@@ -9,7 +9,7 @@ path's shape (4 slots x 96x96), at the non-pipelined lockstep frame's
 (24 recordings x 4 slots, 96 slots) and on edge cases (flat planes,
 crop rows that are no multiple of 8, planes off a 16-byte boundary, one
 slot, 70,000 slots), timing the two main shapes by CUDA-graph replay
-(device time) and by eager calls. Then it drives four paths at full
+(device time) and by eager calls. Then it drives five paths at full
 ``ModelConfig()`` width with TF32 off, K1's launches counted from 0 just
 before each:
 
@@ -44,11 +44,22 @@ before each:
   Gauss-Newton calibration); ``load_eval``'s metrics of each run;
   lockstep against sequential, one recording against the port's CPU run,
   the GN window card against CPU, a serving run (K1's bf16 rows at N=32)
-  and K1 at N=32 and N=128 against its plain version, with its times.
+  and K1 at N=32 and N=128 against its plain version, with its times;
+* data (``data_phase``): the packed-data path: the protocol's label tree
+  packed by ``pack_sample_data.main`` (views 1-2, windows of 8 frames;
+  each frame's 4 fisheye views rectified in one K1 launch of 4 x 305,280
+  px), then ``run_inference_torch_data.main`` over all 32 windows 16 at a
+  time and over 4 one at a time (each window preprocessed on the prefetch
+  thread, one K1 launch of 16 crops), each run repeated; lockstep against
+  one at a time, 2 windows against the port's CPU run, one recording's
+  pack against the CPU's, a serving run (bf16 rows), the device's busy
+  time over one group, a K1 failure on the prefetch thread raising in the
+  consumer, and K1 at both shapes against its plain version, with its
+  times.
 
 Prints the card's name and power limit first, one ``{"path": ...}``, one
-``{"lockstep": ...}``, one ``{"demo": ...}``, one ``{"protocol": ...}`` and
-one ``{"kernels": [...]}`` line and, last,
+``{"lockstep": ...}``, one ``{"demo": ...}``, one ``{"protocol": ...}``, one
+``{"data": ...}`` and one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``. Any failed check raises; without a CUDA
 device, or without the port beside it, it exits non-zero and prints no
 result.
@@ -59,6 +70,7 @@ result.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import math
 import subprocess
@@ -103,6 +115,15 @@ PROTOCOL_FRAMES = 32  # per recording: four chunks
 PROTOCOL_CPU_FRAMES = 8  # one recording, the card against the port's CPU run
 GN_LOG_SCALE_TOL = 1e-5  # the GN window's log-scale, card against CPU
 GN_RESIDUAL_TOL_MM = 1e-3  # its final mean landmark residual
+DATA_RECORDINGS = 4  # the data phase's label tree: the protocol's recordings
+DATA_FRAMES = 32
+DATA_WINDOW = 8  # pack_sample_data's default window: N = 8 frames x 2 views = 16 slots a window
+DATA_BATCH = 16  # windows in lockstep (--batch-windows)
+DATA_B1_LIMIT = 4  # windows of the one-at-a-time run (--limit)
+DATA_CPU_WINDOWS = 2  # windows of the card-against-CPU run
+DATA_CPU_FRAMES = 16  # frames of the one recording packed on the CPU too
+MONO_EQUAL = 0.999  # the least share of packed mono bytes equal between the card's pack and the CPU's
+LABELS_REL = 1e-5  # packed labels, card against CPU, relative to each field's largest value
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 
@@ -1537,7 +1558,7 @@ def protocol_phase(seed: int, device: str = "cuda", n_frames: int = PROTOCOL_FRA
             warp_kernel.K1.reset_counts()
             clock = _RenderClock(eval_lib)
             with clock:
-                wall, lines = _cli(module, ["--output-dir", str(out), "--checkpoint", str(pt), "--override"] + arch + argv)
+                wall, lines, _ = _cli(module, ["--output-dir", str(out), "--checkpoint", str(pt), "--override"] + arch + argv)
             shapes, modes = dict(warp_kernel.K1.shapes), dict(warp_kernel.K1.modes)
             if on_card:  # the card's f32 model samples with f32 rows
                 want = {(n, p): k for n, k in expect_launches.items()}
@@ -1623,15 +1644,15 @@ class _RenderClock:
 
 
 def _cli(module, argv) -> tuple:
-    """(wall seconds, printed lines) of one ``module.main(argv)``."""
+    """(wall seconds, printed lines, return value) of one ``module.main(argv)``."""
     import io
     from contextlib import redirect_stdout
 
     out = io.StringIO()
     t0 = time.perf_counter()
     with redirect_stdout(out):
-        module.main(argv)
-    return time.perf_counter() - t0, out.getvalue().splitlines()
+        result = module.main(argv)
+    return time.perf_counter() - t0, out.getvalue().splitlines(), result
 
 
 def _protocol_on_card(root, data, generic_path, pt, runs, common, slots, chunks, p) -> dict:
@@ -1658,8 +1679,8 @@ def _protocol_on_card(root, data, generic_path, pt, runs, common, slots, chunks,
     first = sorted((Path(data) / "testing" / "user00").glob("*.json"))[0]
     shutil.copy(first, one / first.name)
     one_root = ["--input-dir", str(root / "one"), "--checkpoint", str(pt), "--override"]
-    wall, _ = _cli(known, one_root + ["--output-dir", str(root / "cpu"), "--torch-device", "cpu",
-                                      "--max-frames", str(PROTOCOL_CPU_FRAMES)])
+    wall, _, _ = _cli(known, one_root + ["--output-dir", str(root / "cpu"), "--torch-device", "cpu",
+                                         "--max-frames", str(PROTOCOL_CPU_FRAMES)])
     card = {k: v for k, v in runs["known_b1"]["results"].items() if k.startswith("testing/user00/" + first.stem)}
     cpu_err = results_error(card, read_results(root / "cpu"))
     if cpu_err > LANDMARK_TOL_MM:
@@ -1678,8 +1699,8 @@ def _protocol_on_card(root, data, generic_path, pt, runs, common, slots, chunks,
 
     # serving: K1's bf16 rows at N=32
     warp_kernel.K1.reset_counts()
-    wall, _ = _cli(known, one_root + ["--output-dir", str(root / "serving"), "--torch-device", "cuda",
-                                      "--precision", "serving"])
+    wall, _, _ = _cli(known, one_root + ["--output-dir", str(root / "serving"), "--torch-device", "cuda",
+                                         "--precision", "serving"])
     want = ({(slots, p): chunks}, {"bf16": chunks})
     if (dict(warp_kernel.K1.shapes), dict(warp_kernel.K1.modes)) != want:
         raise RuntimeError(f"serving: K1 {dict(warp_kernel.K1.shapes)} {dict(warp_kernel.K1.modes)}; want {want}")
@@ -1759,6 +1780,273 @@ def _protocol_on_card(root, data, generic_path, pt, runs, common, slots, chunks,
     return out
 
 
+def packed_compare(a_root, b_root) -> dict:
+    """Two packs of the same recordings, window by window over the windows
+    both hold: the share of mono bytes equal, their largest difference, and
+    the labels' largest error relative to each field's largest value;
+    raises when the folders differ, a mono byte differs by more than 1 or
+    the labels by more than ``LABELS_REL``."""
+    from absolutetrack_tpu_torch.data import PackedDataset, find_dataset_folders
+
+    folders = [find_dataset_folders(str(r), ["mono", "labels"]) for r in (a_root, b_root)]
+    rel = [[str(Path(f).relative_to(r)) for f in fs] for fs, r in zip(folders, (a_root, b_root))]
+    if rel[0] != rel[1] or not rel[0]:
+        raise RuntimeError(f"packed folders differ: {rel}")
+    equal, total, max_diff, labels_err = 0, 0, 0, 0.0
+    for fa, fb in zip(*folders):
+        da, db = PackedDataset([fa], ["mono", "labels"]), PackedDataset([fb], ["mono", "labels"])
+        for i in range(min(len(da), len(db))):
+            a, b = da[i], db[i]
+            d = np.abs(a["mono"].astype(np.int16) - b["mono"].astype(np.int16))
+            equal, total, max_diff = equal + int((d == 0).sum()), total + d.size, max(max_diff, int(d.max()))
+            if sorted(a["labels"]) != sorted(b["labels"]):
+                raise RuntimeError("packed label keys differ")
+            for key, value in a["labels"].items():
+                if isinstance(value, dict):
+                    if value != b["labels"][key]:
+                        raise RuntimeError(f"packed {key} differs")
+                    continue
+                va, vb = np.asarray(value, np.float64), np.asarray(b["labels"][key], np.float64)
+                scale = max(float(np.abs(va).max()), 1e-12)
+                labels_err = max(labels_err, float(np.abs(va - vb).max()) / scale)
+    if max_diff > 1 or equal / total < MONO_EQUAL or labels_err > LABELS_REL:
+        raise RuntimeError(f"packs differ: mono max {max_diff}, equal share {equal / total}, labels {labels_err}")
+    return dict(mono_equal_share=equal / total, mono_max_diff=max_diff, labels_max_rel_err=labels_err)
+
+
+def data_phase(
+    seed: int, device: str = "cuda", n_recordings: int = DATA_RECORDINGS, n_frames: int = DATA_FRAMES,
+    window: int = DATA_WINDOW, batch_windows: int = DATA_BATCH, limit: int = DATA_B1_LIMIT,
+) -> dict:
+    """The packed-data path at full ``ModelConfig()`` width with TF32 off
+    (``device="cpu"`` and a small tree: its CPU rehearsal): the protocol's
+    label tree of ``n_recordings`` x ``n_frames`` mesh frames packed by
+    ``pack_sample_data.main`` (views 1-2, windows of ``window`` frames, one
+    K1 launch of 4 full frames a frame), then
+    ``run_inference_torch_data.main`` over every window ``batch_windows``
+    at a time and over the first ``limit`` one at a time (one K1 launch of
+    2 ``window`` crops a window), K1's launches counted from 0 before each
+    run; lockstep against one at a time; on the card also 2 windows against
+    the port's CPU run, one recording's pack against the CPU's, a serving
+    run (bf16 rows), the device's busy time over one group, and K1 at both
+    new shapes against its plain version in the f32 and bf16 row modes,
+    with its times."""
+    import tempfile
+
+    import torch
+
+    from absolutetrack_tpu_torch.apps import eval_lib
+    from absolutetrack_tpu_torch.apps import pack_sample_data as pack
+    from absolutetrack_tpu_torch.apps import run_inference_torch_data as infer
+    from absolutetrack_tpu_torch.data import PackedDataset, find_dataset_folders
+    from absolutetrack_tpu_torch.data.transform import preprocess_packed
+    from absolutetrack_tpu_torch.models.config import ModelConfig
+    from absolutetrack_tpu_torch.ops import warp_kernel
+
+    on_card = device == "cuda"
+    cfg = ModelConfig()
+    h, w = SRC_HW
+    crop_px = cfg.input_size[0] * cfg.input_size[1]
+    n_windows = n_recordings * 2 * (n_frames // window)
+    out = dict(recordings=n_recordings, frames_per_recording=n_frames, window=window, windows=n_windows)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data, generic = protocol_tree(root, build_scene(seed, n_frames + n_recordings - 1, mesh=True), n_recordings, n_frames)
+        pt = root / "reference.pt"
+        torch.save(reference_state_dict(cfg, seed), pt)
+
+        def pack_args(input_dir, max_frames, out_dir, dev):
+            return ["--input-dir", str(input_dir), "--generic-hand-model", str(generic), "--window", str(window),
+                    "--views", "1", "2", "--max-frames", str(max_frames), "--renderer", "mesh",
+                    "--output-dir", str(out_dir), "--torch-device", dev]
+
+        def counted(name, want):
+            shapes, modes = dict(warp_kernel.K1.shapes), dict(warp_kernel.K1.modes)
+            if (shapes, modes) != (want if on_card else ({}, {})):  # the CPU launches no K1
+                raise RuntimeError(f"{name}: K1 launches by shape {shapes}, modes {modes}; want {want}")
+            return {f"N={n} P={p}": k for (n, p), k in sorted(shapes.items())}
+
+        # 1. pack on the device: one K1 launch of the 4 views a frame
+        warp_kernel.K1.reset_counts()
+        with _RenderClock(eval_lib) as render:
+            wall, lines, _ = _cli(pack, pack_args(data, n_frames, root / "packed", device))
+        frames = n_recordings * n_frames
+        launches = counted("pack", ({(N_VIEWS, h * w): frames}, {"f32": frames}))
+        out["pack"] = dict(
+            wall_s=wall, frames=frames, render_s=render.seconds, render_share=render.seconds / wall,
+            k1_launches=launches, last_line=lines[-1], rectify_ms_per_frame=_rectify_ms(data, window, device),
+        )
+
+        # 2. the windows, batch_windows at a time, then the first `limit` one
+        # at a time; each run twice, the first counted
+        infer_args = ["--data-root", str(root / "packed"), "--checkpoint", str(pt), "--torch-device", device]
+        runs = {}
+        for name, argv, n in (
+            ("w_batch", ["--batch-windows", str(batch_windows)], n_windows),
+            ("w1", ["--batch-windows", "1", "--limit", str(limit)], limit),
+        ):
+            warp_kernel.K1.reset_counts()
+            wall, lines, (errors, loop_s) = _cli(infer, infer_args + argv)
+            if errors.shape != (n, window) or not np.isfinite(errors).all():
+                raise RuntimeError(f"{name}: errors of shape {errors.shape}, or not finite")
+            launches = counted(name, ({(2 * window, crop_px): n}, {"f32": n}))
+            _, _, (again, repeat_s) = _cli(infer, infer_args + argv)
+            if not np.abs(again - errors).max() <= LANDMARK_TOL_MM:
+                raise RuntimeError(f"{name}: a repeat of the run gave other errors")
+            runs[name] = errors
+            out[name] = dict(
+                windows=n, frames=n * window, wall_s=wall, loop_s=loop_s, windows_per_s=n / loop_s,
+                frames_per_s=n * window / loop_s, repeat_loop_s=repeat_s, repeat_frames_per_s=n * window / repeat_s,
+                mean_error_mm=float(errors.mean()), k1_launches=launches,
+                printed=[line for line in lines if line.startswith(("throughput", "Mean"))],
+            )
+        out["batched_vs_b1_max_err_mm"] = float(np.abs(runs["w_batch"][:limit] - runs["w1"]).max())
+        if not out["batched_vs_b1_max_err_mm"] <= LANDMARK_TOL_MM:
+            raise RuntimeError(f"data: W={batch_windows} against W=1: {out['batched_vs_b1_max_err_mm']} mm")
+
+        # reading a window (the label dict's msgpack decode) and preprocessing it, alone
+        ds = PackedDataset(find_dataset_folders(str(root / "packed"), ["mono", "labels"]), ["mono", "labels"])
+        t0 = time.perf_counter()
+        samples = [ds[i] for i in range(min(len(ds), batch_windows))]
+        out["read_ms_per_window"] = (time.perf_counter() - t0) / len(samples) * 1e3
+        preprocess_packed(np.asarray(samples[0]["mono"]), samples[0]["labels"], device=device)  # warm-up
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        seqs = [preprocess_packed(np.asarray(s["mono"]), s["labels"], device=device) for s in samples]
+        sync()
+        out["preprocess_ms_per_window"] = (time.perf_counter() - t0) / len(samples) * 1e3
+        # the network alone on preprocessed windows: one group in lockstep, one window
+        model = eval_lib.build_model(str(pt), cfg, device=device)
+        out["network_ms"] = {}
+        for name, group in (("group", infer.stack_windows(seqs)), ("window", infer.stack_windows(seqs[:1]))):
+            infer.eval_windows_batched(model, group).cpu()  # warm-up
+            t0 = time.perf_counter()
+            infer.eval_windows_batched(model, group).cpu()
+            out["network_ms"][f"{name}_of_{len(group.hand_idx)}"] = (time.perf_counter() - t0) * 1e3
+        del model, seqs
+        if on_card:
+            out.update(_data_on_card(root, data, pack_args, infer_args, runs, out["w_batch"]["loop_s"], window))
+    out["k1_launches"] = sum(
+        sum(out[name]["k1_launches"].values()) for name in ("pack", "w_batch", "w1", "serving") if name in out
+    )
+    return out
+
+
+def _rectify_ms(data, n_frames: int, device: str) -> float:
+    """Host-clock ms a frame of ``rectify_views`` over ``n_frames`` frames of
+    the tree's first recording, rendered before the clock starts, after
+    one warm-up frame: the warp and its readback without the rendering."""
+    import torch
+
+    from absolutetrack_tpu_torch.apps import eval_lib
+    from absolutetrack_tpu_torch.apps import pack_sample_data as pack
+    from absolutetrack_tpu_torch.tracker.video_data import load_labels
+
+    labels = load_labels(str(sorted((Path(data) / "testing" / "user00").glob("*.json"))[0]))
+    frames = list(itertools.islice(eval_lib.frames_for(labels, None), n_frames))
+    pack.rectify_views(labels, frames, max_frames=1, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pack.rectify_views(labels, frames, max_frames=n_frames, device=device)  # ends in copies to the host
+    return (time.perf_counter() - t0) / n_frames * 1e3
+
+
+def _data_on_card(root, data, pack_args, infer_args, runs, batch_loop_s, window) -> dict:
+    """The data phase's checks that need the card: 2 windows against the
+    port's CPU run, one recording's pack against the CPU's, a serving run,
+    the device's busy time over one group, a K1 failure on the prefetch
+    thread raising in the consumer, and K1 at the rectify and window shapes
+    against its plain version in the f32 and bf16 row modes, with its
+    times."""
+    import shutil
+
+    from absolutetrack_tpu_torch.apps import eval_lib
+    from absolutetrack_tpu_torch.apps import pack_sample_data as pack
+    from absolutetrack_tpu_torch.apps import run_inference_torch_data as infer
+    from absolutetrack_tpu_torch.data import PackedDataset, find_dataset_folders
+    from absolutetrack_tpu_torch.data.transform import preprocess_packed
+    from absolutetrack_tpu_torch.models.config import ModelConfig
+    from absolutetrack_tpu_torch.ops import warp_kernel
+    from absolutetrack_tpu_torch.tracker.video_data import load_labels
+
+    out = {}
+    # the card's errors against the port's CPU run, on the same packed windows
+    argv = [a if a != "cuda" else "cpu" for a in infer_args] + ["--limit", str(DATA_CPU_WINDOWS)]
+    wall, _, (cpu_errors, _) = _cli(infer, argv)
+    out["vs_cpu_max_err_mm"] = float(np.abs(cpu_errors - runs["w1"][:DATA_CPU_WINDOWS]).max())
+    out["cpu_windows"], out["cpu_wall_s"] = DATA_CPU_WINDOWS, wall
+    if not out["vs_cpu_max_err_mm"] <= LANDMARK_TOL_MM:
+        raise RuntimeError(f"data card vs CPU: {out['vs_cpu_max_err_mm']} mm")
+
+    # one recording packed on the CPU against the card's pack of it
+    first = sorted((Path(data) / "testing" / "user00").glob("*.json"))[0]
+    (root / "one" / "testing").mkdir(parents=True)
+    shutil.copy(first, root / "one" / "testing" / first.name)
+    for dev in ("cpu", "cuda"):
+        _cli(pack, pack_args(root / "one", DATA_CPU_FRAMES, root / f"one_{dev}", dev))
+    out["pack_vs_cpu"] = dict(packed_compare(root / "one_cuda", root / "one_cpu"), frames=DATA_CPU_FRAMES)
+
+    # serving: the bf16 trunk, and preprocessing with bf16 rows
+    warp_kernel.K1.reset_counts()
+    wall, _, (serving, loop_s) = _cli(infer, infer_args + ["--precision", "serving", "--limit", str(DATA_CPU_WINDOWS)])
+    crop_px = math.prod(ModelConfig().input_size)
+    want = ({(2 * window, crop_px): DATA_CPU_WINDOWS}, {"bf16": DATA_CPU_WINDOWS})
+    if (dict(warp_kernel.K1.shapes), dict(warp_kernel.K1.modes)) != want:
+        raise RuntimeError(f"data serving: K1 {dict(warp_kernel.K1.shapes)} {dict(warp_kernel.K1.modes)}; want {want}")
+    out["serving"] = dict(
+        windows=DATA_CPU_WINDOWS, loop_s=loop_s, k1_launches={f"N={2 * window} P={crop_px}": DATA_CPU_WINDOWS},
+        k1_row_modes={"bf16": DATA_CPU_WINDOWS},
+        vs_parity_max_err_mm=float(np.abs(serving - runs["w1"][:DATA_CPU_WINDOWS]).max()),
+    )
+
+    # the device's busy time over one group of batch_windows windows, and
+    # its idle share of the counted run's evaluation loop
+    group = infer_args + ["--batch-windows", str(DATA_BATCH), "--limit", str(DATA_BATCH)]
+    busy = device_busy(lambda: _cli(infer, group), DATA_BATCH * window)
+    idle = 1 - busy["device_busy_ms_per_frame"] * runs["w_batch"].size / 1e3 / batch_loop_s
+    out["device"] = dict(busy, group_windows=DATA_BATCH, device_idle_share=idle)
+
+    # a K1 failure on the prefetch thread reaches the consumer: the run raises
+    def refused(*args):
+        raise RuntimeError("K1 refused the launch")
+
+    kernel, warp_kernel.K1 = warp_kernel.K1, refused
+    try:
+        _cli(infer, infer_args + ["--limit", "1"])
+    except RuntimeError as e:
+        if "K1 refused" not in str(e):
+            raise
+    else:
+        raise RuntimeError("a K1 failure on the prefetch thread did not reach the consumer")
+    finally:
+        warp_kernel.K1 = kernel
+    out["worker_failure_raises"] = True
+
+    # K1 at both new shapes, on the path's own coordinates
+    recorder = _RecordCalls(warp_kernel.K1)
+    warp_kernel.K1 = recorder
+    try:
+        labels = load_labels(str(first))
+        pack.rectify_views(labels, eval_lib.frames_for(labels, None), max_frames=1, device="cuda")
+        ds = PackedDataset(find_dataset_folders(str(root / "packed"), ["mono", "labels"]), ["mono", "labels"])
+        preprocess_packed(np.asarray(ds[0]["mono"]), ds[0]["labels"], device="cuda")
+    finally:
+        warp_kernel.K1 = recorder.kernel
+    k1 = {}
+    for name, (images, ii, xs, ys, valid_hw, _) in zip(("n4_full_frame", "n16_windows"), recorder.calls):
+        err = max(k1_error(images, ii, xs, ys, valid_hw, m) for m in row_modes(images.dtype))
+        if err > K1_TOL:
+            raise RuntimeError(f"K1 at {name}: max |err| {err} > {K1_TOL}")
+        k1[name] = dict(k1_timings(images, ii, xs, ys, iters=50), max_abs_err=err, rows_checked=["f32", "bf16"],
+                        source_dtype=str(images.dtype), n=xs.shape[0], p=xs[0].numel())
+    if [(v["n"], v["p"]) for v in k1.values()] != [(N_VIEWS, SRC_HW[0] * SRC_HW[1]), (2 * window, crop_px)]:
+        raise RuntimeError(f"K1 calls recorded at {[(v['n'], v['p']) for v in k1.values()]}")
+    out["k1"] = k1
+    return out
+
+
 def main(seed: int = 0) -> int:
     import torch
 
@@ -1793,12 +2081,14 @@ def main(seed: int = 0) -> int:
     lockstep = lockstep_phase(seed)
     demo = demo_phase(seed)
     protocol = protocol_phase(seed)
+    data = data_phase(seed)
 
     n768 = lockstep["k1_n768"]
     print(json.dumps({"path": path, "card": smi}))
     print(json.dumps({"lockstep": lockstep, "card": smi}))
     print(json.dumps({"demo": demo, "card": smi}))
     print(json.dumps({"protocol": protocol, "card": smi}))
+    print(json.dumps({"data": data, "card": smi}))
     print(json.dumps({"kernels": [{
         "name": "bilinear_sample",
         "route": "cuda",
@@ -1809,18 +2099,23 @@ def main(seed: int = 0) -> int:
                     "pallas_warp.py:127-173 (int8 row mix, row f); "
                     "pallas_warp.py:174-186 (bf16 row mix, row g)",
         "launches": path["k1_launches"] + lockstep["k1_launches"]
-        + demo["parity"]["k1_launches"] + demo["serving"]["k1_launches"] + protocol["k1_launches"],
+        + demo["parity"]["k1_launches"] + demo["serving"]["k1_launches"] + protocol["k1_launches"]
+        + data["k1_launches"],
         "launches_by_path": {
             "sequential": path["k1_launches"], "lockstep": lockstep["k1_launches"],
             "demo_parity_f32_rows": demo["parity"]["k1_launches"],
             "demo_serving_bf16_rows": demo["serving"]["k1_launches"],
             **{f"protocol_{name}": run["k1_launches"] for name, run in protocol["runs"].items()},
             "protocol_serving_bf16_rows": protocol["serving"]["k1_launches"],
+            "data_rectify": sum(data["pack"]["k1_launches"].values()),
+            "data_windows": sum(data["w_batch"]["k1_launches"].values()) + sum(data["w1"]["k1_launches"].values()),
+            "data_windows_serving_bf16_rows": sum(data["serving"]["k1_launches"].values()),
         },
         "max_abs_err": max(
             k["max_abs_err"], n768["max_abs_err"], n768["n1024_max_abs_err"],
             n768["bf16_rows_f32_bf16_views_max_abs_err"],
             *(v["max_abs_err"] if isinstance(v, dict) else v for v in protocol["k1"].values()),
+            *(v["max_abs_err"] for v in data["k1"].values()),
         ),
         "tolerance": K1_TOL,
         "checked": "every row-weight mode (f32, bf16, int8 on uint8 views), every dtype, cases "
@@ -1831,6 +2126,8 @@ def main(seed: int = 0) -> int:
         "n768": dict(n768, shape="N=768: the pipelined lockstep chunk (24 recordings x 8 frames x 4 slots)"),
         "n32": dict(protocol["k1"]["n32"], shape="N=32: the eval protocol's chunk, one recording (8 frames x 4 slots)"),
         "n128": dict(protocol["k1"]["n128"], shape="N=128: the eval protocol's lockstep chunk (4 recordings)"),
+        "n4_full_frame": dict(data["k1"]["n4_full_frame"], shape="N=4 P=305,280 f32 480x636: pack_sample_data's rectify, 4 whole frames"),
+        "n16_windows": dict(data["k1"]["n16_windows"], shape="N=16 P=9,216 f32 480x636 views: a packed window's homography warp (8 frames x 2 views)"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

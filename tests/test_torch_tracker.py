@@ -171,17 +171,23 @@ PROTOCOL_MODULES = (
     "apps/load_eval", "apps/run_eval_known_skeleton", "apps/run_eval_unknown_skeleton", "kinematics/metrics",
     "models/checkpoint", "models/weights", "ops/gauss_newton", "utils/flax_msgpack",
 )
+# the packed-data path's modules: the data layer and its two apps
+DATA_MODULES = (
+    "data/idxbin", "data/dataset", "data/prefetch", "data/transform",
+    "apps/pack_sample_data", "apps/run_inference_torch_data",
+)
 
 
 def test_port_imports_no_jax():
-    """No module of the port (its live demo, ``apps/demo/``, included), and
-    not chip_smoke.py, imports JAX, the JAX package, flax or msgpack (the
-    card's machine has neither; checkpoints go through the port's codec)."""
+    """No module of the port (its live demo, ``apps/demo/``, and its data
+    layer included), and not chip_smoke.py, imports JAX, the JAX package,
+    flax or msgpack (the card's machine has neither; checkpoints and packed
+    label fields go through the port's codec)."""
     files = sorted((ROOT / "absolutetrack_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     demo = ROOT / "absolutetrack_tpu_torch" / "apps" / "demo"
     assert {demo / f"{m}.py" for m in DEMO_MODULES} <= set(files)
-    assert {ROOT / "absolutetrack_tpu_torch" / f"{m}.py" for m in PROTOCOL_MODULES} <= set(files)
+    assert {ROOT / "absolutetrack_tpu_torch" / f"{m}.py" for m in PROTOCOL_MODULES + DATA_MODULES} <= set(files)
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "msgpack", "absolutetrack_tpu"), f"{path}: imports {name}"
@@ -196,7 +202,7 @@ def test_port_loads_without_jax():
         for p in (ROOT / "absolutetrack_tpu_torch").rglob("*.py")
     )
     assert {f"absolutetrack_tpu_torch.apps.demo.{m}".removesuffix(".__init__") for m in DEMO_MODULES} <= set(mods)
-    assert {"absolutetrack_tpu_torch." + m.replace("/", ".") for m in PROTOCOL_MODULES} <= set(mods)
+    assert {"absolutetrack_tpu_torch." + m.replace("/", ".") for m in PROTOCOL_MODULES + DATA_MODULES} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for m in {mods!r} + ['chip_smoke']: importlib.import_module(m)\n"
