@@ -14,7 +14,9 @@ class PrefetchIterator:
 
     ``transform``, if given, runs on the worker. An exception in the worker
     re-raises at the consuming site after the items before it; ``close``
-    (or dropping the iterator) stops the worker promptly.
+    (or dropping the iterator) stops the worker promptly, and ``close``
+    returns once the worker has finished the item in hand, so no work it
+    launches follows the call.
     """
 
     _DONE = object()
@@ -74,6 +76,8 @@ class PrefetchIterator:
                 self._q.get_nowait()
         except queue.Empty:
             pass
+        if threading.current_thread() is not self._thread:
+            self._thread.join()
 
     def __del__(self):  # best-effort cleanup
         self.close()

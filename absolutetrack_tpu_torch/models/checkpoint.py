@@ -1,5 +1,6 @@
-"""Param checkpoints (port of ``save_params``, ``load_params`` and
-``load_any`` of ``absolutetrack_tpu/models/checkpoint.py``).
+"""Param and train-state checkpoints (port of ``save_params``,
+``load_params``, ``load_any``, ``save_train_state`` and ``load_train_state``
+of ``absolutetrack_tpu/models/checkpoint.py``).
 
 The format is the JAX package's own: flax's msgpack of the JAX-layout
 param tree (lists stored as maps keyed "0", "1", ...), read and written
@@ -25,8 +26,11 @@ from .config import ModelConfig
 
 def _state_dict(tree):
     """The state dict that the JAX package's ``save_params`` serializes: a
-    dict's keys sorted (as ``jax.tree.map`` rebuilds dicts), lists as maps
-    keyed by position (as flax stores them)."""
+    dict's keys sorted (as ``jax.tree.map`` rebuilds dicts), lists and
+    tuples as maps keyed by position, named tuples as maps of their fields
+    in declaration order (as flax stores them)."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {f: _state_dict(getattr(tree, f)) for f in tree._fields}
     if isinstance(tree, dict):
         return {str(k): _state_dict(tree[k]) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
@@ -38,6 +42,9 @@ def _restore(template, state, path: str = ""):
     """``state`` in the shape of ``template``, as flax's ``from_state_dict``
     restores it; a missing key, a list of another length or a leaf of
     another shape raises."""
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        fields = _restore(dict(zip(template._fields, template)), state, path)
+        return type(template)(**fields)
     if isinstance(template, dict):
         if not isinstance(state, dict):
             raise ValueError(f"{path or '/'}: expected a map, got {type(state).__name__}")
@@ -45,15 +52,23 @@ def _restore(template, state, path: str = ""):
         if missing:
             raise ValueError(f"{path or '/'}: the checkpoint lacks {sorted(missing)}")
         return {k: _restore(v, state[str(k)], f"{path}/{k}") for k, v in template.items()}
-    if isinstance(template, list):
+    if isinstance(template, (list, tuple)):
         if not isinstance(state, dict) or len(state) != len(template):
             n = len(state) if isinstance(state, dict) else type(state).__name__
             raise ValueError(f"{path}: the list has {len(template)} entries, the checkpoint {n}")
-        return [_restore(v, state[str(i)], f"{path}/{i}") for i, v in enumerate(template)]
+        return type(template)(_restore(v, state[str(i)], f"{path}/{i}") for i, v in enumerate(template))
     if not isinstance(state, np.ndarray) or state.shape != template.shape:
         got = state.shape if isinstance(state, np.ndarray) else type(state).__name__
         raise ValueError(f"{path}: expected an array of shape {template.shape}, got {got}")
     return state
+
+
+def _write(path: str, data: bytes) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)  # atomic publish
 
 
 def save_params(path: str, params) -> None:
@@ -62,12 +77,7 @@ def save_params(path: str, params) -> None:
     from .params import export_jax_params
 
     tree = export_jax_params(params) if isinstance(params, nn.Module) else params
-    data = flax_msgpack.packb(_state_dict(tree))
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(data)
-    os.replace(tmp, path)  # atomic publish
+    _write(path, flax_msgpack.packb(_state_dict(tree)))
 
 
 def load_params(path: str, cfg: ModelConfig = ModelConfig()) -> Dict:
@@ -111,3 +121,25 @@ def load_any(path: str, cfg: ModelConfig = ModelConfig()) -> Dict:
             ".msgpack from save_params or a torch state dict "
             "(.torch/.pt/.pth). Original error follows."
         ) from e
+
+
+def save_train_state(path: str, state) -> None:
+    """Checkpoint a whole ``TrainState`` (params, the optimizer's guard
+    fields, moments and count, the step) for resumable training, in the
+    JAX package's bytes (``save_train_state`` there: flax msgpack of the
+    state, with optax's state layout)."""
+    from .params import export_jax_train_state
+
+    _write(path, flax_msgpack.packb(_state_dict(export_jax_train_state(state))))
+
+
+def load_train_state(path: str, template):
+    """Restore a ``TrainState`` saved by either package's
+    ``save_train_state``; ``template`` is a train state of the same
+    architecture, and the result lives on its model's device."""
+    from .params import export_jax_train_state, load_jax_train_state
+
+    with open(path, "rb") as f:
+        state = flax_msgpack.unpackb(f.read())
+    tree = _restore(export_jax_train_state(template), state)
+    return load_jax_train_state(tree, template.params.cfg, device=template.params.device)

@@ -4,14 +4,23 @@ The JAX param tree (``absolutetrack_tpu.models.umetrack.init_umetrack_params``
 or a converted checkpoint) is nested dicts and lists of arrays: HWIO conv
 weights, (in, out) linear weights, BN already folded. Convs become OIHW,
 linear weights are transposed; ``export_jax_params`` goes back.
+
+Tensors keyed by the model's parameter names (gradients, Adam's moments)
+cross the same way (``export_jax_tensors``/``load_jax_tensors``), and so
+does a whole train state (``export_jax_train_state``/``load_jax_train_state``).
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Dict
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..training.optimizer import AdamState, GuardState
+from ..training.train import TrainState
 from ..utils.runtime import resolve_device
 from .config import ModelConfig
 from .layers import BasicBlock
@@ -117,3 +126,78 @@ def export_jax_params(model: UmeTrackModel) -> dict:
         "regressor_k": _regressor_tree(model.regressor_k),
         "regressor_u": _regressor_tree(model.regressor_u),
     }
+
+
+def _carrier(cfg: ModelConfig) -> UmeTrackModel:
+    """An f32 model on the CPU whose parameters hold tensors to carry."""
+    return UmeTrackModel(dataclasses.replace(cfg, compute_dtype="float32"), device="cpu")
+
+
+def export_jax_tensors(tensors: Dict[str, torch.Tensor], cfg: ModelConfig = ModelConfig()) -> dict:
+    """Tensors keyed by ``UmeTrackModel`` parameter names (gradients,
+    moments) as a JAX param tree, transposed as the weights are."""
+    carrier = _carrier(cfg)
+    with torch.no_grad():
+        for name, p in carrier.named_parameters():
+            p.copy_(tensors[name])
+    return export_jax_params(carrier)
+
+
+def load_jax_tensors(tree: dict, cfg: ModelConfig = ModelConfig(), device=None) -> Dict[str, torch.Tensor]:
+    """The inverse of ``export_jax_tensors``: f32 tensors on ``device``
+    (``cuda`` unless given), keyed by parameter name."""
+    model = load_jax_params(tree, dataclasses.replace(cfg, compute_dtype="float32"), device=device)
+    return {name: p.detach() for name, p in model.named_parameters()}
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def export_jax_train_state(state: TrainState) -> TrainState:
+    """A train state in the JAX package's layout, numpy leaves: the param
+    tree, optax's ``ApplyIfFiniteState`` fields with the ``chain`` state as
+    the tuple ``((), (AdamState(count, mu, nu), (), ()))`` (clip, adam,
+    decay, scale: only adam keeps state), and the step. Named tuples
+    serialize as their fields in order, tuples by position
+    (``models/checkpoint.py::save_train_state``)."""
+    cfg = state.params.cfg
+    guard, adam = state.opt_state, state.opt_state.inner_state
+    return TrainState(
+        params=export_jax_params(state.params),
+        opt_state=GuardState(
+            notfinite_count=_host(guard.notfinite_count),
+            last_finite=_host(guard.last_finite),
+            total_notfinite=_host(guard.total_notfinite),
+            inner_state=((), (AdamState(_host(adam.count), export_jax_tensors(adam.mu, cfg),
+                                        export_jax_tensors(adam.nu, cfg)), (), ())),
+        ),
+        step=_host(state.step),
+    )
+
+
+def load_jax_train_state(tree, cfg: ModelConfig = ModelConfig(), device=None) -> TrainState:
+    """A JAX train state (``TrainState(params, optax state, step)`` with
+    numpy or JAX leaves, or ``export_jax_train_state``'s) as the port's, on
+    ``device`` (``cuda`` unless given)."""
+    device = resolve_device(device)
+    guard = tree.opt_state
+    adam = guard.inner_state[1][0]
+
+    def scalar(x, dtype):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    return TrainState(
+        params=load_jax_params(tree.params, cfg, device=device),
+        opt_state=GuardState(
+            notfinite_count=scalar(guard.notfinite_count, torch.int32),
+            last_finite=scalar(guard.last_finite, torch.bool),
+            total_notfinite=scalar(guard.total_notfinite, torch.int32),
+            inner_state=AdamState(
+                count=scalar(adam.count, torch.int32),
+                mu=load_jax_tensors(adam.mu, cfg, device),
+                nu=load_jax_tensors(adam.nu, cfg, device),
+            ),
+        ),
+        step=scalar(tree.step, torch.int32),
+    )

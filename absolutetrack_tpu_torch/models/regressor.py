@@ -70,9 +70,10 @@ class Regressor(nn.Module):
         )
 
     def forward(self, features: torch.Tensor) -> RegressorOutput:
-        """(B, C, h, w) -> decoded outputs (pool and decoders in f32)."""
+        """(B, C, h, w) -> decoded outputs (pool and decoders in f32, or
+        wider: a float64 model decodes in float64)."""
         x = self.out(self.blocks(features))
-        pose = torch.mean(x.float(), dim=(2, 3))
+        pose = torch.mean(x.to(torch.promote_types(x.dtype, torch.float32)), dim=(2, 3))
         ranges, _ = output_dims(self.predict_skel_scale, self.cfg.n_wrist_rigid_pts)
         b = pose.shape[0]
 

@@ -124,7 +124,9 @@ class UmeTrackModel(nn.Module):
     def _trunk(self, frame: FrameInputs) -> torch.Tensor:
         """Backbone + FTL fusion -> (B, C, h, w) cam0-space features."""
         b, v, hh, ww = frame.left_images.shape
-        feats = self.backbone(frame.left_images.reshape(b * v, 1, hh, ww).to(self.cfg.dtype))
+        # the crops enter in the trunk's weight type: cfg.dtype (a float64
+        # copy of the model runs in float64)
+        feats = self.backbone(frame.left_images.reshape(b * v, 1, hh, ww).to(self.backbone.stem.weight.dtype))
         feats = feats.reshape((b, v) + feats.shape[1:])
         singlev_xfs = compute_singlev_xfs(frame.intrinsics, self.cfg.canonical_focal_length)
         return fuse_views(self.fusion, feats, singlev_xfs, frame.extrinsics, frame.view_mask, self.cfg)

@@ -9,7 +9,7 @@ path's shape (4 slots x 96x96), at the non-pipelined lockstep frame's
 (24 recordings x 4 slots, 96 slots) and on edge cases (flat planes,
 crop rows that are no multiple of 8, planes off a 16-byte boundary, one
 slot, 70,000 slots), timing the two main shapes by CUDA-graph replay
-(device time) and by eager calls. Then it drives five paths at full
+(device time) and by eager calls. Then it drives six paths at full
 ``ModelConfig()`` width with TF32 off, K1's launches counted from 0 just
 before each:
 
@@ -55,11 +55,28 @@ before each:
   pack against the CPU's, a serving run (bf16 rows), the device's busy
   time over one group, a K1 failure on the prefetch thread raising in the
   consumer, and K1 at both shapes against its plain version, with its
-  times.
+  times;
+* train (``train_phase``): ``apps.train.main`` on packed windows from a
+  tree the phase packs itself (2 recordings, windows of 8), ``--branch
+  both``, 16 steps of 4 windows (64 crops a step) from a reference-named
+  ``.pt``, each window preprocessed on the prefetch thread (one K1 launch
+  of 16 crops), saving at step 8 and 16; the train-state file read back
+  bit-equal to the state in memory; ``--resume`` for 4 more steps (the
+  step counter goes on); ``--rendered --input-size 96 --window 2`` for 8
+  steps over recording_00/02/11 of 66 mesh frames (one K1 launch of 128
+  slots a recording on uint8 frames; the cache in a fresh directory) with
+  the held-out MPJPE before and after; each step's ms (synchronised) and
+  wait for its batch, steps/s, crops/s and peak memory; a synchronised
+  breakdown of a step into forward, backward and optimizer; the device's
+  busy time over two steps; one step (2 windows, T=2) against the port's
+  CPU (loss, gradients per leaf, params) and the card's own spread over
+  two identical steps; K1 at the rendered shape against its plain version
+  in the f32, bf16 and int8 row modes, with its times.
 
 Prints the card's name and power limit first, one ``{"path": ...}``, one
 ``{"lockstep": ...}``, one ``{"demo": ...}``, one ``{"protocol": ...}``, one
-``{"data": ...}`` and one ``{"kernels": [...]}`` line and, last,
+``{"data": ...}``, one ``{"train": ...}`` and one ``{"kernels": [...]}`` line
+and, last,
 ``{"ok": true, "device": ...}``. Any failed check raises; without a CUDA
 device, or without the port beside it, it exits non-zero and prints no
 result.
@@ -124,6 +141,25 @@ DATA_CPU_WINDOWS = 2  # windows of the card-against-CPU run
 DATA_CPU_FRAMES = 16  # frames of the one recording packed on the CPU too
 MONO_EQUAL = 0.999  # the least share of packed mono bytes equal between the card's pack and the CPU's
 LABELS_REL = 1e-5  # packed labels, card against CPU, relative to each field's largest value
+TRAIN_STEPS = 16  # packed training at --batch 4: 4 windows x T=8 x 2 views = 64 crops a step
+TRAIN_RESUME_STEPS = 4
+TRAIN_BATCH = 4
+TRAIN_WINDOW = 8  # pack_sample_data's window: K1 at N=16 a window
+TRAIN_RENDERED_STEPS = 8
+TRAIN_RENDERED_FRAMES = 66  # 16 windows at stride 4 and T=2: K1 at N=4 x 16 x 2 = 128 a recording
+TRAIN_RENDERED_WINDOW = 2
+TRAIN_LR = 1e-4  # the CLI's default
+# One step, card against CPU, at full width. tests/test_torch_training.py
+# holds each gradient leaf to 1e-4 of its own largest |g| at tiny width; at
+# full width a pre-activation within rounding of 0 flips a ReLU, so a leaf
+# can move by ~6e-4 of its own largest (the port against JAX on the CPU:
+# 5.6e-4, backbone.stage2.0.conv1), and the gradient is held against the
+# largest |g| of all leaves and in norm instead; params after the step
+# within 1e-6 where |g| exceeds 1e-4 of that largest, 2 lr elsewhere.
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_GRAD_NORM_REL = 1e-5
+TRAIN_PARAM_TOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 
@@ -2047,6 +2083,355 @@ def _data_on_card(root, data, pack_args, infer_args, runs, batch_loop_s, window)
     return out
 
 
+class _StepClock:
+    """Times each train step of ``apps.train.main`` on the host clock, the
+    device synchronised at the step's end, and each wait for the prefetch
+    thread's next batch, by wrapping the module's ``make_train_step`` and
+    ``PrefetchIterator`` while in use."""
+
+    def __init__(self, app, sync: bool):
+        self.app, self.sync = app, sync
+        self.step_ms, self.wait_ms = [], []
+
+    def __enter__(self):
+        import torch
+
+        real_step, real_iter = self.app.make_train_step, self.app.PrefetchIterator
+        self._real = real_step, real_iter
+        clock = self
+
+        def make_train_step(*args, **kwargs):
+            step = real_step(*args, **kwargs)
+
+            def timed(state, batch, hand):
+                t0 = time.perf_counter()
+                out = step(state, batch, hand)
+                if clock.sync:
+                    torch.cuda.synchronize()
+                clock.step_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            return timed
+
+        class Timed(real_iter):
+            def __next__(self):
+                t0 = time.perf_counter()
+                item = super().__next__()
+                clock.wait_ms.append((time.perf_counter() - t0) * 1e3)
+                return item
+
+        self.app.make_train_step, self.app.PrefetchIterator = make_train_step, Timed
+        return self
+
+    def __exit__(self, *exc):
+        self.app.make_train_step, self.app.PrefetchIterator = self._real
+
+
+def _spread(xs) -> dict:
+    """Median, min and max of a run's per-step times after its first (the
+    first step warms cuDNN's algorithm choice and the allocator)."""
+    rest = xs[1:] if len(xs) > 1 else xs
+    return dict(median=float(np.median(rest)), min=float(np.min(rest)), max=float(np.max(rest)),
+                first=float(xs[0]), n=len(xs))
+
+
+def _states_equal(a, b) -> bool:
+    """Two train states bit for bit: params, the guard's fields, count, moments, step."""
+    import torch
+
+    pa, pb = dict(a.params.named_parameters()), dict(b.params.named_parameters())
+    ga, gb = a.opt_state, b.opt_state
+    tensors = [(pa[k], pb[k]) for k in pa] + [(ga.inner_state.mu[k], gb.inner_state.mu[k]) for k in pa]
+    tensors += [(ga.inner_state.nu[k], gb.inner_state.nu[k]) for k in pa]
+    tensors += [(getattr(ga, f), getattr(gb, f)) for f in ("notfinite_count", "last_finite", "total_notfinite")]
+    tensors += [(ga.inner_state.count, gb.inner_state.count), (a.step, b.step)]
+    return sorted(pa) == sorted(pb) and all(x.dtype == y.dtype and torch.equal(x, y) for x, y in tensors)
+
+
+def train_phase(seed: int, device: str = "cuda", tiny: bool = False) -> dict:
+    """Training through ``apps.train.main`` at full ``ModelConfig()`` width
+    with TF32 off (``tiny`` and ``device="cpu"``: its CPU rehearsal, the
+    rendered mode at ``--tiny-arch`` 32x32, fewer and smaller steps; the
+    packed mode always trains the full model): packed windows from a tree
+    that the phase packs itself (2 recordings, windows of 8), ``--branch
+    both``, ``TRAIN_STEPS`` steps of 4 windows from a reference-named
+    ``.pt`` (K1 at N=16 on the prefetch thread, 4 launches a step), the
+    train-state file read back bit-equal to the state in memory, then
+    ``--resume`` for ``TRAIN_RESUME_STEPS`` more; rendered windows
+    (``--rendered --input-size 96 --window 2``) from a label tree of
+    recording_00/02/11 of ``TRAIN_RENDERED_FRAMES`` mesh frames, the cache
+    in a fresh directory (K1 at N=128, uint8 frames, once a recording). On
+    the card also: a synchronised breakdown of a step, the device's busy
+    time over two steps, one step against the port's CPU on the same batch
+    (B=2, T=2) and the card's own spread, and K1 at the rendered shape
+    against its plain version, with its times."""
+    import io
+    import tempfile
+    from contextlib import redirect_stdout
+
+    import torch
+
+    from absolutetrack_tpu_torch.apps import pack_sample_data as pack
+    from absolutetrack_tpu_torch.apps import train as app
+    from absolutetrack_tpu_torch.models import checkpoint
+    from absolutetrack_tpu_torch.models.config import ModelConfig
+    from absolutetrack_tpu_torch.ops import warp_kernel
+
+    on_card = device == "cuda"
+    steps, resume_steps, batch, window = (2, 1, 2, 2) if tiny else (TRAIN_STEPS, TRAIN_RESUME_STEPS, TRAIN_BATCH, TRAIN_WINDOW)
+    r_steps, r_frames = (2, 10) if tiny else (TRAIN_RENDERED_STEPS, TRAIN_RENDERED_FRAMES)
+    size = 32 if tiny else ModelConfig().input_size[0]
+    crop_px = ModelConfig().input_size[0] * ModelConfig().input_size[1]
+    dev = ["--torch-device", device]
+    out = dict(device=device, tiny=tiny)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        n_frames = 2 * window
+        data, generic = protocol_tree(root, build_scene(seed, n_frames + 1, mesh=True), 2, n_frames)
+        with redirect_stdout(io.StringIO()):
+            pack.main(["--input-dir", str(data), "--generic-hand-model", str(generic), "--window", str(window),
+                       "--views", "1", "2", "--max-frames", str(n_frames), "--renderer", "mesh",
+                       "--output-dir", str(root / "packed")] + dev)
+        pt = root / "reference.pt"
+        torch.save(reference_state_dict(ModelConfig(), seed), pt)
+
+        def k1_counts(name, allowed):
+            shapes = dict(warp_kernel.K1.shapes)
+            ok = (all(shape in allowed for shape in shapes) and shapes) if on_card else not shapes
+            if not ok:
+                raise RuntimeError(f"train {name}: K1 launches by shape {shapes}; want shapes {allowed}")
+            return {f"N={n} P={p}": k for (n, p), k in sorted(shapes.items())}
+
+        # 1. packed training, the step clocked
+        warp_kernel.K1.reset_counts()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        argv = ["--data-root", str(root / "packed"), "--branch", "both", "--batch", str(batch),
+                "--checkpoint", str(pt)] + dev
+        with _StepClock(app, on_card) as clock:
+            wall, lines, res = _cli(app, argv + ["--steps", str(steps), "--save-every", str(max(steps // 2, 1)),
+                                                 "--save", str(root / "ck.msgpack")])
+        launches = k1_counts("packed", {(2 * window, crop_px)})
+        n_k1 = sum(launches.values())
+        # the prefetch thread builds up to 4 batches past the last step: 2
+        # queued, 1 waiting to be queued, 1 begun when close() drains the queue
+        if on_card and not steps * batch <= n_k1 <= (steps + 4) * batch:
+            raise RuntimeError(f"train packed: {n_k1} K1 launches for {steps} steps of {batch} windows")
+        losses = [float(m["total"]) for m in res["metrics"]]
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"train packed: losses {losses}")
+        back = checkpoint.load_train_state(str(root / "ck.msgpack.train"), res["state"])
+        if not _states_equal(back, res["state"]):
+            raise RuntimeError("train packed: the train-state file does not hold the state in memory")
+        crops = batch * window * 2
+        out["packed"] = dict(
+            steps=steps, batch=batch, window=window, crops_per_step=crops, wall_s=wall, loop_s=res["seconds"],
+            steps_per_s=steps / res["seconds"], crops_per_s=steps * crops / res["seconds"],
+            step_ms=_spread(clock.step_ms), wait_ms=_spread(clock.wait_ms),
+            step_plus_wait_ms=_spread([a + b for a, b in zip(clock.step_ms, clock.wait_ms)]),
+            losses=losses, k1_launches=launches, train_state_bit_equal=True,
+            max_memory_allocated_bytes=torch.cuda.max_memory_allocated() if on_card else None,
+            printed=[line for line in lines if line.startswith(("step", "saved"))],
+        )
+
+        # 2. resume: the step counter and the moments go on
+        warp_kernel.K1.reset_counts()
+        _, lines, resumed = _cli(app, argv + ["--steps", str(resume_steps), "--resume", str(root / "ck.msgpack.train"),
+                                              "--save", str(root / "resumed.msgpack")])
+        want = f"resumed from {root / 'ck.msgpack.train'} at step {steps}"
+        if want not in lines or int(resumed["state"].step) != steps + resume_steps:
+            raise RuntimeError(f"train resume: {lines[:2]}, step {int(resumed['state'].step)}")
+        out["resume"] = dict(step_before=steps, steps=resume_steps, step_after=int(resumed["state"].step),
+                             k1_launches=k1_counts("resume", {(2 * window, crop_px)}),
+                             losses=[float(m["total"]) for m in resumed["metrics"]])
+        del resumed
+
+        # 3. rendered windows through the tracker's crop path, a fresh cache
+        rroot = root / "rendered"
+        rroot.mkdir()
+        scene = build_scene(seed + 1, r_frames + 2, mesh=True)
+        for i, name in enumerate(("recording_00", "recording_02", "recording_11")):
+            (rroot / f"{name}.json").write_text(json.dumps(labels_json(scene, i, r_frames)))
+        rgeneric = rroot / "generic_hand_model.json"
+        rgeneric.write_text(json.dumps({k: np.asarray(v).tolist() for k, v in scene["hand_model"].items()}))
+        rpt = pt
+        if tiny:
+            rpt = root / "tiny.pt"
+            torch.save(reference_state_dict(ModelConfig.tiny(input_size=(size, size)), seed), rpt)
+        n_windows = min(len(range(0, r_frames - TRAIN_RENDERED_WINDOW, 4)), 16)
+        warp_kernel.K1.reset_counts()
+        recorder = _RecordCalls(warp_kernel.K1)
+        warp_kernel.K1 = recorder
+        try:
+            with _StepClock(app, on_card) as rclock:
+                wall, lines, rres = _cli(app, [
+                    "--rendered", "--rendered-root", str(rroot), "--generic-hand-model", str(rgeneric),
+                    "--input-size", str(size), "--window", str(TRAIN_RENDERED_WINDOW), "--steps", str(r_steps),
+                    "--batch", str(TRAIN_BATCH), "--checkpoint", str(rpt), "--cache-dir", str(root / "cache"),
+                    "--save", str(root / "rendered.msgpack")] + (["--tiny-arch"] if tiny else []) + dev)
+        finally:
+            warp_kernel.K1 = recorder.kernel
+        n_slots = 4 * n_windows * TRAIN_RENDERED_WINDOW
+        rlaunches = k1_counts("rendered", {(n_slots, size * size)})
+        if on_card and sum(rlaunches.values()) != 3:  # one chunk a recording
+            raise RuntimeError(f"train rendered: K1 launches {rlaunches}")
+        if not np.isfinite(rres["heldout"]).all():
+            raise RuntimeError(f"train rendered: held-out MPJPE {rres['heldout']}")
+        rsteps = [float(m["total"]) for m in rres["metrics"]]
+        out["rendered"] = dict(
+            steps=r_steps, batch=TRAIN_BATCH, window=TRAIN_RENDERED_WINDOW, frames_per_recording=r_frames,
+            windows_per_recording=n_windows, wall_s=wall, loop_s=rres["seconds"],
+            steps_per_s=r_steps / rres["seconds"],
+            crops_per_s=r_steps * TRAIN_BATCH * TRAIN_RENDERED_WINDOW * 2 / rres["seconds"],
+            step_ms=_spread(rclock.step_ms), wait_ms=_spread(rclock.wait_ms), losses=rsteps,
+            heldout_mm=list(rres["heldout"]), k1_launches=rlaunches,
+            printed=[line for line in lines if line.startswith(("rendered", "held-out"))],
+        )
+        del rres
+        if on_card:
+            out.update(_train_on_card(root, pt, window))
+            images, ii, xs, ys, valid_hw, _ = recorder.calls[0]
+            if xs.shape != (n_slots, size, size) or images.dtype != torch.uint8:
+                raise RuntimeError(f"train rendered: K1 called at {tuple(xs.shape)}, {images.dtype}")
+            err = {warp_kernel.ROW_MODE_NAMES[m]: k1_error(images, ii, xs, ys, valid_hw, m) for m in row_modes(images.dtype)}
+            if max(err.values()) > K1_TOL:
+                raise RuntimeError(f"K1 at the rendered shape: max |err| {err} > {K1_TOL}")
+            out["k1"] = dict(k1_timings(images, ii, xs, ys, iters=50), max_abs_err=max(err.values()),
+                             max_abs_err_by_rows=err, source_dtype=str(images.dtype), n=n_slots, p=size * size)
+        del recorder
+    out["k1_launches"] = sum(sum(out[name]["k1_launches"].values()) for name in ("packed", "resume", "rendered"))
+    return out
+
+
+def _train_on_card(root, pt, window) -> dict:
+    """The train phase's measurements and checks that need the card, on
+    batches of the phase's packed tree: a synchronised breakdown of a step
+    (4 windows of T=8) into forward, backward and optimizer; the device's
+    busy time over two steps; one step (2 windows, T=2) against the port's
+    CPU with ``tests/test_torch_training.py``'s rules, and the card's
+    spread over two identical steps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from absolutetrack_tpu_torch.apps import eval_lib
+    from absolutetrack_tpu_torch.apps import train as app
+    from absolutetrack_tpu_torch.data import PackedDataset, find_dataset_folders
+    from absolutetrack_tpu_torch.data.transform import preprocess_packed
+    from absolutetrack_tpu_torch.models.config import ModelConfig
+    from absolutetrack_tpu_torch.training.optimizer import apply_updates
+    from absolutetrack_tpu_torch.training.train import (
+        SequenceBatch, init_train_state, loss_fn, make_optimizer, make_train_step, to_device,
+    )
+
+    cfg = ModelConfig()
+    ds = PackedDataset(find_dataset_folders(str(root / "packed"), ["mono", "labels"]), ["mono", "labels"])
+    seqs = [preprocess_packed(np.asarray(ds[i]["mono"]), ds[i]["labels"], device="cuda") for i in range(TRAIN_BATCH)]
+    batch, hand = app.windows_to_batch(seqs)
+    out = {}
+
+    # a synchronised breakdown of one step (after a warm-up step)
+    state = init_train_state(eval_lib.build_model(str(pt), cfg, device="cuda"), make_optimizer(TRAIN_LR))
+    step = make_train_step(cfg, make_optimizer(TRAIN_LR), branch="both")
+    state, _ = step(state, batch, hand)
+    model, opt = state.params, make_optimizer(TRAIN_LR)
+    params = dict(model.named_parameters())
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    opt_state = state.opt_state
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(model, batch, hand, cfg, "both")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        updates, opt_state = opt.update(dict(zip(params, grads)), opt_state, params)
+        apply_updates(params, updates)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for name, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[name].append(dt * 1e3)
+    out["breakdown_ms"] = {k: float(np.median(v)) for k, v in parts.items()}
+    out["breakdown_ms"]["crops"] = TRAIN_BATCH * window * 2
+
+    # the device's busy time over two steps, beside their wall time
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        state, _ = step(state, batch, hand)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            state, _ = step(state, batch, hand)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device activity")
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    out["device"] = dict(busy_ms_two_steps=busy, wall_ms_two_steps=wall_ms, idle_share=1 - busy / wall_ms,
+                         kernels_per_step=sum(e.count for e in kernels) / 2)
+    del state, step, model, params, opt_state
+
+    # one step, card against CPU, on the same 2 windows of T=2
+    time_major = {"images", "intrinsics", "extrinsics", "use_memory", "sample_mask", "gt_joint_angles", "gt_wrist"}
+    small = SequenceBatch(**{k: (v[:2, :2] if k in time_major else v[:2]) for k, v in batch._asdict().items()})
+    small_hand = hand.map(lambda x: x[:2])
+
+    def one_step(dev):
+        model = eval_lib.build_model(str(pt), cfg, device=dev).requires_grad_(True)
+        b, h = to_device(small, small_hand, dev)
+        ps = dict(model.named_parameters())
+        loss, _ = loss_fn(model, b, h, cfg, "both")
+        grads = torch.autograd.grad(loss, list(ps.values()), allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(ps.items(), grads)}
+        opt = make_optimizer(TRAIN_LR)
+        updates, _ = opt.update(grads, opt.init(ps), ps)
+        apply_updates(ps, updates)
+        flat = lambda t: {k: v.detach().cpu().numpy() for k, v in t.items()}  # noqa: E731
+        return float(loss.detach()), flat(grads), flat(ps)
+
+    t0 = time.perf_counter()
+    cpu = one_step("cpu")
+    cpu_s = time.perf_counter() - t0
+    card, again = one_step("cuda"), one_step("cuda")
+
+    def grad_errors(a, b):
+        """(max |a - b| over the largest |b| of all leaves, the whole
+        gradient's relative error in norm, the worst leaf by its own largest |b|)."""
+        gmax = max(float(np.abs(g).max()) for g in b.values())
+        worst = max((float(np.abs(a[k] - g).max() / max(np.abs(g).max(), 1e-30)), k) for k, g in b.items())
+        norm = math.sqrt(sum(float(((a[k] - g) ** 2).sum()) for k, g in b.items()))
+        return max(float(np.abs(a[k] - g).max()) for k, g in b.items()) / gmax, norm / math.sqrt(
+            sum(float((g ** 2).sum()) for g in b.values())), worst
+
+    grad_err, grad_norm_err, leaf_worst = grad_errors(card[1], cpu[1])
+    gmax = max(float(np.abs(g).max()) for g in cpu[1].values())
+    strong_err, weak_err = 0.0, 0.0
+    for k, p in cpu[2].items():
+        strong = np.abs(cpu[1][k]) > TRAIN_GRAD_TOL * gmax
+        d = np.abs(card[2][k] - p)
+        strong_err, weak_err = max(strong_err, float(d[strong].max(initial=0.0))), max(weak_err, float(d.max()))
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    spread = grad_errors(again[1], card[1])
+    out["vs_cpu"] = dict(
+        windows=2, frames=2, loss=card[0], cpu_loss=cpu[0], loss_rel_err=loss_rel, grad_err_of_largest=grad_err,
+        grad_norm_rel_err=grad_norm_err, grad_worst_leaf=dict(name=leaf_worst[1], err_of_its_largest=leaf_worst[0]),
+        params_err_strong=strong_err, params_err_all=weak_err, cpu_step_s=cpu_s,
+        card_spread=dict(loss_rel=abs(again[0] - card[0]) / abs(card[0]), grad_err_of_largest=spread[0],
+                         grad_norm_rel_err=spread[1], params_max=max(float(np.abs(again[2][k] - p).max())
+                                                                    for k, p in card[2].items())),
+        tolerances=dict(loss_rel=TRAIN_LOSS_REL, grad_err_of_largest=TRAIN_GRAD_TOL, grad_norm_rel=TRAIN_GRAD_NORM_REL,
+                        params_strong=TRAIN_PARAM_TOL, params_all=2 * TRAIN_LR),
+    )
+    if not (loss_rel <= TRAIN_LOSS_REL and grad_err <= TRAIN_GRAD_TOL and grad_norm_err <= TRAIN_GRAD_NORM_REL
+            and strong_err <= TRAIN_PARAM_TOL and weak_err <= 2 * TRAIN_LR):
+        raise RuntimeError(f"train step, card against CPU: {out['vs_cpu']}")
+    return out
+
+
 def main(seed: int = 0) -> int:
     import torch
 
@@ -2082,6 +2467,7 @@ def main(seed: int = 0) -> int:
     demo = demo_phase(seed)
     protocol = protocol_phase(seed)
     data = data_phase(seed)
+    train = train_phase(seed)
 
     n768 = lockstep["k1_n768"]
     print(json.dumps({"path": path, "card": smi}))
@@ -2089,6 +2475,7 @@ def main(seed: int = 0) -> int:
     print(json.dumps({"demo": demo, "card": smi}))
     print(json.dumps({"protocol": protocol, "card": smi}))
     print(json.dumps({"data": data, "card": smi}))
+    print(json.dumps({"train": train, "card": smi}))
     print(json.dumps({"kernels": [{
         "name": "bilinear_sample",
         "route": "cuda",
@@ -2100,7 +2487,7 @@ def main(seed: int = 0) -> int:
                     "pallas_warp.py:174-186 (bf16 row mix, row g)",
         "launches": path["k1_launches"] + lockstep["k1_launches"]
         + demo["parity"]["k1_launches"] + demo["serving"]["k1_launches"] + protocol["k1_launches"]
-        + data["k1_launches"],
+        + data["k1_launches"] + train["k1_launches"],
         "launches_by_path": {
             "sequential": path["k1_launches"], "lockstep": lockstep["k1_launches"],
             "demo_parity_f32_rows": demo["parity"]["k1_launches"],
@@ -2110,12 +2497,15 @@ def main(seed: int = 0) -> int:
             "data_rectify": sum(data["pack"]["k1_launches"].values()),
             "data_windows": sum(data["w_batch"]["k1_launches"].values()) + sum(data["w1"]["k1_launches"].values()),
             "data_windows_serving_bf16_rows": sum(data["serving"]["k1_launches"].values()),
+            "train_packed": sum(train["packed"]["k1_launches"].values()) + sum(train["resume"]["k1_launches"].values()),
+            "train_rendered": sum(train["rendered"]["k1_launches"].values()),
         },
         "max_abs_err": max(
             k["max_abs_err"], n768["max_abs_err"], n768["n1024_max_abs_err"],
             n768["bf16_rows_f32_bf16_views_max_abs_err"],
             *(v["max_abs_err"] if isinstance(v, dict) else v for v in protocol["k1"].values()),
             *(v["max_abs_err"] for v in data["k1"].values()),
+            train["k1"]["max_abs_err"],
         ),
         "tolerance": K1_TOL,
         "checked": "every row-weight mode (f32, bf16, int8 on uint8 views), every dtype, cases "
@@ -2128,6 +2518,7 @@ def main(seed: int = 0) -> int:
         "n128": dict(protocol["k1"]["n128"], shape="N=128: the eval protocol's lockstep chunk (4 recordings)"),
         "n4_full_frame": dict(data["k1"]["n4_full_frame"], shape="N=4 P=305,280 f32 480x636: pack_sample_data's rectify, 4 whole frames"),
         "n16_windows": dict(data["k1"]["n16_windows"], shape="N=16 P=9,216 f32 480x636 views: a packed window's homography warp (8 frames x 2 views)"),
+        "n128_rendered": dict(train["k1"], shape="N=128 P=9,216 uint8 480x636 mesh frames: a rendered training chunk (16 windows x 2 frames x 4 slots)"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -272,3 +272,20 @@ def test_k1_bf16_rows_match_plain_on_the_card(cuda_device, dtype):
     before = warp_kernel.K1.modes["bf16"]
     assert chip_smoke.k1_error(imgs, idx, xs, ys, chip_smoke.SRC_HW, warp_kernel.ROWS_BF16) <= chip_smoke.K1_TOL
     assert warp_kernel.K1.modes["bf16"] == before + 1
+
+
+@pytest.mark.cuda
+def test_k1_matches_plain_at_the_rendered_training_shape(cuda_device):
+    """The rendered training chunk (``training/rendered.py``): N = 128 crops
+    of 96x96 from unpadded uint8 frames of 480x636 (16 windows x 2 frames x
+    4 views), in every row-weight mode of uint8 views, one launch each."""
+    rng = np.random.default_rng(17)
+    h, w = chip_smoke.SRC_HW
+    imgs = torch.from_numpy(rng.integers(0, 256, (128, h, w), dtype=np.uint8)).to(cuda_device)
+    x = torch.from_numpy(rng.uniform(-3, w + 2, (128, 96, 96)).astype(np.float32)).to(cuda_device)
+    y = torch.from_numpy(rng.uniform(-3, h + 2, (128, 96, 96)).astype(np.float32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(0, 128, 128)).to(cuda_device)
+    for mode in _card_modes(torch.uint8):
+        before = warp_kernel.K1.shapes[(128, 96 * 96)]
+        assert chip_smoke.k1_error(imgs, idx, x, y, None, mode) <= chip_smoke.K1_TOL
+        assert warp_kernel.K1.shapes[(128, 96 * 96)] == before + 1
