@@ -25,6 +25,7 @@ from ...tracker.tracker import NUM_HANDS, HandTracker, TrackerConfig
 from .detector_2d import Detector2D, keypoints_to_slots
 from .stereo_rig import IMG_HEIGHT, IMG_WIDTH, build_stereo_cameras
 from .unity_udp import UnitySender
+from .visualizer import ImageVisualizer
 
 
 @dataclasses.dataclass
@@ -33,6 +34,7 @@ class DemoConfig:
     image_width: int = IMG_WIDTH
     image_height: int = IMG_HEIGHT
     send_udp: bool = True
+    visualize: bool = False  # run_pipeline draws each frame's views (visualizer.ImageVisualizer; needs cv2)
 
 
 class StereoFrameSource:
@@ -129,9 +131,12 @@ def run_pipeline(
     on_result: Optional[Callable] = None,
     max_frames: Optional[int] = None,
 ):
-    """The single-process loop: detect per view, track, send; ``on_result``
-    gets (frame index, keypoints, frames/s EMA)."""
+    """The single-process loop: detect per view, track, send (and, with
+    ``cfg.visualize``, show the views with the detections and the tracked
+    hands reprojected); ``on_result`` gets (frame index, keypoints,
+    frames/s EMA)."""
     sender = UnitySender() if cfg.send_udp else None
+    viz = ImageVisualizer() if cfg.visualize else None
     fps_ema = None
     t_prev = time.perf_counter()
     try:
@@ -145,6 +150,8 @@ def run_pipeline(
             keypoints = live_tracker(mono, kp, valid)
             if sender is not None:
                 sender.send(keypoints)
+            if viz is not None:
+                viz.render(rgb, per_view, live_tracker.project_to_views(keypoints))
             now = time.perf_counter()
             inst = 1.0 / max(now - t_prev, 1e-6)
             fps_ema = inst if fps_ema is None else 0.9 * fps_ema + 0.1 * inst

@@ -11,8 +11,10 @@ chunk, the ConvRNN tail stepped per frame. With ``pipelined=False`` the
 chunk runs the per-frame step. Device results stay on the device until
 every chunk has been issued. ``frames_for`` picks a recording's frames
 (its video, else a synthetic renderer). The eval CLIs
-(``run_eval_known_skeleton``, ``run_eval_unknown_skeleton``) drive it;
-sharding over several cards (``mesh=``) is not ported yet.
+(``run_eval_known_skeleton``, ``run_eval_unknown_skeleton``) drive it.
+With ``mesh=`` (a ``parallel.Mesh`` of several ranks) the lockstep splits
+its recordings over the 'data' axis: each rank tracks its contiguous
+block, and every rank returns all results.
 """
 
 from __future__ import annotations
@@ -232,7 +234,7 @@ def track_recordings_batched(
     mesh=None,
     stage_hook: StageHook = None,
 ) -> List[SequenceResult]:
-    """Track R recordings in lockstep on one card -> one SequenceResult each.
+    """Track R recordings in lockstep -> one SequenceResult each.
 
     Per recording the results are those of ``track_recording``: each keeps
     its own cameras, hand model, temporal memory and validity history.
@@ -242,9 +244,26 @@ def track_recordings_batched(
     card recording-major, ``(R, chunk, V, H, W)`` uint8. ``stage_hook``, if
     given, is called with each stage's name as it ends (assemble, upload,
     the stages of ``track_chunk_eval_batched``, fk), for a caller's timing.
+
+    With ``mesh`` (a ``parallel.Mesh``) R must divide by its 'data' size
+    n: each rank tracks the contiguous block of R / n recordings of its
+    data coordinate (replicated over 'model') on its own device, as JAX
+    shards the recording axis, and the results are all-gathered, so that
+    every rank returns all R in recording order. A pipelined chunk is
+    recording-major and per sample, so nothing else crosses the ranks.
     """
     if mesh is not None:
-        raise NotImplementedError("sharding recordings over several cards (mesh=) is not ported yet")
+        n = mesh.shape["data"]
+        if len(recordings) % n:
+            raise ValueError(f"{len(recordings)} recordings do not split over a data axis of {n}")
+        k = len(recordings) // n
+        block = slice(mesh.data_index * k, (mesh.data_index + 1) * k)
+        mine = track_recordings_batched(
+            model, recordings[block], None if hand_models_mm is None else hand_models_mm[block], opts,
+            min_num_crops, calibrate_scale, max_frames, chunk_size, pipelined, stage_hook=stage_hook,
+        )
+        everyone = mesh.objects(mine)
+        return [res for d in range(n) for res in everyone[d * mesh.shape["model"]]]
     mark = stage_hook or (lambda name: None)
     labels_list = [lab for lab, _ in recordings]
     r = len(labels_list)

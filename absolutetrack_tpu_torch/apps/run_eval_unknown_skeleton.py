@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from . import eval_lib
-from .run_eval_known_skeleton import add_common_args, pending_outputs, setup, write_result
+from .run_eval_known_skeleton import add_common_args, is_writer, pending_outputs, setup, write_result
 from ..kinematics.hand_model import HandModel, load_hand_model_json, scaled_hand_model
 from ..kinematics.skinning import skin_landmarks
 from ..ops.gauss_newton import calibrate_scale_window
@@ -112,15 +112,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     generic = load_hand_model_json(args.generic_hand_model)
-    label_files, model = setup(args)
+    label_files, model, mesh = setup(args)
+    log = print if is_writer(mesh) else (lambda *a, **k: None)
     errors = []
 
     def save_result(rel, out_path, res, user_scale):
-        err = write_result(out_path, res, calibrated_scale=user_scale)
+        err = write_result(out_path, res, is_writer(mesh), calibrated_scale=user_scale)
         errors.append(err)
-        print(f"{rel}: mean keypoint error {err.mean():.2f} mm")
+        log(f"{rel}: mean keypoint error {err.mean():.2f} mm")
 
-    pending = pending_outputs(args, label_files)
+    pending = pending_outputs(args, label_files, mesh)
     b = max(1, args.batch_recordings)
     for i in range(0, len(pending), b):
         group = pending[i : i + b]
@@ -134,7 +135,7 @@ def main(argv=None):
                     model, labels, frames, hand_model_mm=generic, calibrate_scale=True, max_frames=CALIB_FRAMES,
                 )
                 user_scale = calibrated_scale_from(calib, generic, args.calib_mode, model.device)
-                print(f"{rel}: calibrated scale {user_scale:.4f} ({calib.valid_tracking.sum()} calib frames)")
+                log(f"{rel}: calibrated scale {user_scale:.4f} ({calib.valid_tracking.sum()} calib frames)")
 
                 # pass 2: fresh tracker state, known-skeleton tracking
                 frames = eval_lib.frames_for(labels, lf[:-5] + ".mp4", args.renderer)
@@ -155,22 +156,22 @@ def main(argv=None):
             # pass 1 in lockstep: every recording calibrates on the generic skeleton
             calibs = eval_lib.track_recordings_batched(
                 model, recordings(), hand_models_mm=[generic] * len(group), calibrate_scale=True,
-                max_frames=CALIB_FRAMES,
+                max_frames=CALIB_FRAMES, mesh=mesh,
             )
             scales = [calibrated_scale_from(c, generic, args.calib_mode, model.device) for c in calibs]
             for (lf, rel, _out), c, s in zip(group, calibs, scales):
-                print(f"{rel}: calibrated scale {s:.4f} ({c.valid_tracking.sum()} calib frames)")
+                log(f"{rel}: calibrated scale {s:.4f} ({c.valid_tracking.sum()} calib frames)")
 
             # pass 2 in lockstep: fresh state, each recording's calibrated skeleton
             results = eval_lib.track_recordings_batched(
                 model, recordings(), hand_models_mm=[scaled_hand_model(generic, s) for s in scales],
-                min_num_crops=1, max_frames=args.max_frames,
+                min_num_crops=1, max_frames=args.max_frames, mesh=mesh,
             )
             for (lf, rel, out_path), res, s in zip(group, results, scales):
                 save_result(rel, out_path, res, s)
 
     if errors:
-        print(f"Final mean error: {np.concatenate(errors).mean():.3f} mm")
+        log(f"Final mean error: {np.concatenate(errors).mean():.3f} mm")
 
 
 if __name__ == "__main__":

@@ -8,9 +8,17 @@ window's frames (``use_memory`` off only at t = 0) one window at a time or
 W windows in lockstep, then FK and the mm landmark error. ``--torch-device``
 picks the device (``cuda`` unless given).
 
+``--mesh-data D`` splits each group of W windows over D ranks of a
+``torch.distributed`` world, one rank per card: each preprocesses and runs
+its contiguous W / D, the per-window errors are gathered in order and rank
+0 prints. Launch the D ranks with torchrun; ``--backend gloo`` lets
+several ranks share one card (NCCL refuses that) or run on the CPU.
+
 Usage:
   python -m absolutetrack_tpu_torch.apps.run_inference_torch_data \
       --data-root tmp/torch_data [--checkpoint weights.torch] [--batch-windows 16]
+  torchrun --nproc-per-node 2 -m absolutetrack_tpu_torch.apps.run_inference_torch_data \
+      --data-root tmp/torch_data --batch-windows 16 --mesh-data 2
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from ..kinematics.skinning import skin_landmarks
 from ..models.config import ModelConfig
 from ..models.layers import set_conv_precision
 from ..models.umetrack import FrameInputs, SkeletonInputs
+from ..parallel import init_distributed, make_mesh
 
 M_TO_MM = 1000.0
 
@@ -114,11 +123,21 @@ def main(argv=None):
     ap.add_argument("--batch-windows", type=int, default=1,
                     help="evaluate W windows per step in lockstep (the reference runs bs=160)")
     ap.add_argument("--mesh-data", type=int, default=None,
-                    help="shard the window batch over this many cards (not ported: only 1)")
+                    help="split each group of windows over this many ranks of a torch.distributed world "
+                    "(torchrun; requires --batch-windows divisible by it)")
+    ap.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                    help="--mesh-data's process group backend (nccl on cards, gloo on the CPU unless given; "
+                    "ranks that share one card need gloo)")
     ap.add_argument("--torch-device", default="cuda", help="the device the network runs on")
     args = ap.parse_args(argv)
+    mesh, device = None, args.torch_device
     if args.mesh_data is not None and args.mesh_data > 1:
-        raise NotImplementedError("sharding windows over several cards (--mesh-data > 1) is not ported yet")
+        if args.batch_windows % args.mesh_data:
+            raise ValueError("--batch-windows % --mesh-data != 0")
+        init_distributed(backend=args.backend, device=device)
+        mesh = make_mesh(data=args.mesh_data, model=1, devices=device)
+        device = mesh.device
+    log = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
 
     folders = find_dataset_folders(args.data_root, ["mono", "labels"])
     if not folders:
@@ -128,11 +147,11 @@ def main(argv=None):
         )
     ds = PackedDataset(folders, ["mono", "labels"])
     sampler = ShardSampler(len(ds), args.rank, args.world_size)
-    print(f"[rank {args.rank}] {len(sampler)} windows from {len(folders)} folders")
+    log(f"[rank {args.rank}] {len(sampler)} windows from {len(folders)} folders")
 
     mcfg = ModelConfig.serving() if args.precision == "serving" else ModelConfig()
     set_conv_precision("highest")  # f32 convs and matmuls without TF32, as the JAX package's HIGHEST
-    model = eval_lib.build_model(args.checkpoint, cfg=mcfg, device=args.torch_device)
+    model = eval_lib.build_model(args.checkpoint, cfg=mcfg, device=device)
     device = model.device
     # the prefetch thread launches the warp on the stream that the network
     # runs on, so the network reads the crops after they are written
@@ -151,29 +170,34 @@ def main(argv=None):
     if args.batch_windows > 1:
         w = args.batch_windows
 
+        # this rank's contiguous block of each group padded to W (all of it without a mesh)
+        lo, hi = (0, w) if mesh is None else (mesh.data_index * w // mesh.data, (mesh.data_index + 1) * w // mesh.data)
+
         def load_group(g):
-            seqs = [load(i) for i in g]
-            pad = w - len(seqs)
-            return stack_windows(seqs + [seqs[-1]] * pad), len(seqs)
+            seqs = [load(i) for i in g[lo:hi]] or [load(g[-1])]
+            return stack_windows(seqs + [seqs[-1]] * (hi - lo - len(seqs))), len(g)
 
         groups = [indices[i : i + w] for i in range(0, len(indices), w)]
         n_frames = 0
         for stacked, n_real in PrefetchIterator(map(load_group, groups), max_prefetch=args.prefetch):
-            err = eval_windows_batched(model, stacked, n_views=args.views)[:n_real].cpu().numpy()  # (n_real, T)
+            err = eval_windows_batched(model, stacked, n_views=args.views).cpu()  # (W or W / D, T)
+            if mesh is not None:
+                err = torch.cat(list(mesh.grid(err)[:, 0]))
+            err = err[:n_real].numpy()  # (n_real, T)
             errors.extend(err)
             n_frames += err.size
-            print(f"group of {n_real}: {err.mean():.2f} mm")
+            log(f"group of {n_real}: {err.mean():.2f} mm")
         dt = time.time() - t0
-        print(f"throughput: {len(errors) / dt:.1f} windows/s "
+        log(f"throughput: {len(errors) / dt:.1f} windows/s "
               f"({n_frames / dt:.0f} frames/s) at W={w}")
     else:
         for seq in PrefetchIterator(map(load, indices), max_prefetch=args.prefetch):
             err = eval_window(model, seq, n_views=args.views).cpu().numpy()
             errors.append(err)
-            print(f"window error: {err.mean():.2f} mm")
+            log(f"window error: {err.mean():.2f} mm")
     seconds = time.time() - t0
     if errors:
-        print(f"Mean landmark error: {np.concatenate(errors).mean():.3f} mm "
+        log(f"Mean landmark error: {np.concatenate(errors).mean():.3f} mm "
               f"over {len(errors)} windows")
     return np.asarray(errors), seconds
 

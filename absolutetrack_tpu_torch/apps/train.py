@@ -6,13 +6,23 @@ JSONs through the tracker's crop/warp path (``--rendered``: K1 once a
 chunk of windows), or on the synthetic blob task (``--synthetic``), with
 the sequence loss and the optimizer of ``training/``. Saves the params
 and the whole train state (``<save>.train``, which ``--resume`` reads), in
-the JAX package's bytes. Runs on one device, ``cuda`` unless
-``--torch-device`` says otherwise; several cards (``--model-axis`` > 1,
-more than one visible card) raise until the parallel layer is ported.
+the JAX package's bytes. Runs on ``cuda`` unless ``--torch-device`` says
+otherwise.
+
+Several cards run one rank each in a ``torch.distributed`` world launched
+by torchrun, as a (world / M, M) mesh with M = ``--model-axis`` when it
+divides the world (else 1), as JAX's trainer lays its devices: every rank
+draws the same windows from ``default_rng(seed)`` and takes its block of
+the batch ('data'), and of each sample's views ('model'); rank 0 prints
+and saves. ``--backend gloo`` lets several ranks share one card (NCCL
+refuses that) or run on the CPU. One process with several visible cards
+raises: launch one rank per card.
 
 Usage:
   python -m absolutetrack_tpu_torch.apps.train --data-root tmp/torch_data \
       --steps 100 --batch 8 [--checkpoint init.msgpack] [--save out.msgpack]
+  torchrun --nproc-per-node 2 -m absolutetrack_tpu_torch.apps.train --data-root tmp/torch_data \
+      --steps 100 --batch 8 [--model-axis 2]
 """
 
 from __future__ import annotations
@@ -33,9 +43,10 @@ from ..models.checkpoint import load_any, load_train_state, save_params, save_tr
 from ..models.config import ModelConfig
 from ..models.layers import set_conv_precision
 from ..models.params import load_jax_params
+from ..parallel import init_distributed, make_mesh
 from ..training import make_eval_step, make_train_step
 from ..training.synthetic import GENERIC_HAND_MODEL
-from ..training.train import SequenceBatch, init_train_state, make_optimizer, to_device
+from ..training.train import SequenceBatch, init_train_state, local_batch, make_optimizer, to_device
 
 RENDERED_ROOT = "/root/reference/sample_data/user05"
 
@@ -67,18 +78,30 @@ def windows_to_batch(seqs) -> tuple[SequenceBatch, HandModel]:
     return batch, hand
 
 
-def _device(name: str, model_axis: int) -> torch.device:
-    if model_axis != 1:
-        raise NotImplementedError("--model-axis > 1 (views over several cards) is not ported yet")
+def _device(name: str) -> torch.device:
+    """The device of a one-process run."""
     device = torch.device(name)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass --torch-device cpu to train on the CPU")
         if torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                "training over several cards is not ported yet; make one card visible (CUDA_VISIBLE_DEVICES)"
+            n = torch.cuda.device_count()
+            raise RuntimeError(
+                f"{n} cards are visible to one process; the port trains with one rank per card: "
+                f"`torchrun --nproc-per-node {n} -m absolutetrack_tpu_torch.apps.train ...`, "
+                "or make one card visible (CUDA_VISIBLE_DEVICES)"
             )
     return device
+
+
+def _block(mesh, n: int) -> slice:
+    """This rank's contiguous block of a batch of ``n`` (all of it without a mesh)."""
+    if mesh is None:
+        return slice(0, n)
+    if n % mesh.data:
+        raise ValueError(f"a batch of {n} does not split over a data axis of {mesh.data}")
+    k = n // mesh.data
+    return slice(mesh.data_index * k, (mesh.data_index + 1) * k)
 
 
 def main(argv=None):
@@ -132,11 +155,24 @@ def main(argv=None):
     ap.add_argument("--save", default="tmp/checkpoints/latest.msgpack")
     ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--resume", default=None, help="train-state checkpoint to resume from")
-    ap.add_argument("--model-axis", type=int, default=1, help="views over this many cards (not ported: only 1)")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="views over this many ranks of a torch.distributed world (when it divides the world)")
+    ap.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                    help="the process group's backend under torchrun (nccl on cards, gloo on the CPU unless "
+                    "given; ranks that share one card need gloo)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--torch-device", default="cuda", help="the device that trains")
     args = ap.parse_args(argv)
-    device = _device(args.torch_device, args.model_axis)
+    _, world = init_distributed(backend=args.backend, device=args.torch_device)
+    mesh = None
+    if world > 1:
+        model_ax = args.model_axis if world % args.model_axis == 0 else 1
+        mesh = make_mesh(data=world // model_ax, model=model_ax, devices=args.torch_device)
+        _block(mesh, args.batch)  # the batch must split over the data axis
+    device = _device(args.torch_device) if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0  # prints and saves
+    print_ = print if lead else (lambda *a, **k: None)
+    save = args.save if lead else None
 
     if args.synthetic or args.rendered:
         size = (args.input_size, args.input_size)
@@ -147,7 +183,7 @@ def main(argv=None):
         if not folders:
             raise SystemExit(f"no packed data under {args.data_root}")
         ds = PackedDataset(folders, ["mono", "labels"])
-        print(f"{len(ds)} windows from {len(folders)} folders")
+        print_(f"{len(ds)} windows from {len(folders)} folders")
         cfg = ModelConfig()
     set_conv_precision("highest")  # f32 convs and matmuls without TF32, as the JAX package's HIGHEST
     model = eval_lib.build_model(args.checkpoint, cfg, seed=args.seed, device=device)
@@ -155,7 +191,7 @@ def main(argv=None):
     state = init_train_state(model, opt)
     if args.resume:
         state = load_train_state(args.resume, state)
-        print(f"resumed from {args.resume} at step {int(state.step)}")
+        print_(f"resumed from {args.resume} at step {int(state.step)}")
 
     if args.rendered:
         from ..training.rendered import materialize, rendered_dataset, slice_windows
@@ -190,41 +226,46 @@ def main(argv=None):
             [f"{root}/recording_11.json"], max_windows_per_recording=64, cache_path=f"{base_tag}_held.npz", **common,
         )
         n_train = train_b.hand_idx.shape[0]
-        print(f"rendered windows: train {n_train} samples, "
-              f"held-out {held_b.hand_idx.shape[0]} samples (recording_11)")
+        print_(f"rendered windows: train {n_train} samples, "
+               f"held-out {held_b.hand_idx.shape[0]} samples (recording_11)")
+        rows = _block(mesh, min(args.batch, n_train))
 
         def batches():
             rng = np.random.default_rng(args.seed)
             while True:
                 idx = np.sort(rng.choice(n_train, size=min(args.batch, n_train), replace=False))
-                yield slice_windows(train_b, train_h, idx)
+                yield slice_windows(train_b, train_h, idx[rows])
     elif args.synthetic:
         from ..training.synthetic import learnable_windows
 
         def batches():
             i = args.seed
             while True:
-                yield learnable_windows(args.batch, t=args.window, cfg=cfg, seed=i,
-                                        generic_hand_model=args.generic_hand_model)
+                batch, hand = learnable_windows(args.batch, t=args.window, cfg=cfg, seed=i,
+                                                generic_hand_model=args.generic_hand_model)
+                yield (batch, hand) if mesh is None else local_batch(mesh, batch, hand)
                 i += 1
     else:
         # the prefetch thread launches the warp on the stream that the
         # network runs on, so the network reads the crops after they are written
         stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
 
+        rows = _block(mesh, args.batch)
+
         def batches():
             rng = np.random.default_rng(args.seed)
             while True:
-                idx = rng.integers(0, len(ds), args.batch)
+                idx = rng.integers(0, len(ds), args.batch)[rows]
                 with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
                     seqs = [preprocess_packed(np.asarray(ds[int(i)]["mono"]), ds[int(i)]["labels"], device=device)
                             for i in idx]
                 yield windows_to_batch(seqs)
 
     has_eval = args.synthetic or args.rendered
-    step = make_train_step(cfg, opt, branch=args.branch)
+    step = make_train_step(cfg, opt, branch=args.branch, mesh=mesh)
     e0 = None
     if has_eval:
+        # the held-out batch runs whole on every rank, as JAX's step takes it unsharded
         ev = make_eval_step(cfg, branch="unknown" if args.branch == "unknown" else "known")
         if args.rendered:
             held_batch, held_hand = to_device(materialize(held_b), held_h, device)
@@ -240,23 +281,23 @@ def main(argv=None):
             return float(out["err_sum_m"]) / float(out["err_count"]) * 1e3
 
         e0 = heldout_mpjpe_mm(state.params)
-        print(f"held-out tracked MPJPE at init: {e0:.1f} mm")
+        print_(f"held-out tracked MPJPE at init: {e0:.1f} mm")
         best_heldout = e0
         # .best is the canonical artifact: seed it from this stage's init,
         # or score a previous stage's file so that a resumed stage never
         # overwrites a better earlier .best nor leaves a stale one
-        if args.save:
-            best_path = args.save + ".best"
+        if save:
+            best_path = save + ".best"
             if os.path.exists(best_path):
                 try:
                     e_prev = heldout_mpjpe_mm(load_jax_params(load_any(best_path, cfg), cfg, device=device))
-                    print(f"existing .best scores {e_prev:.1f} mm")
+                    print_(f"existing .best scores {e_prev:.1f} mm")
                     if e_prev < best_heldout:
                         best_heldout = e_prev
                     else:
                         save_params(best_path, state.params)
                 except ValueError as exc:  # the architecture changed between stages
-                    print(f".best unreadable ({exc}); reseeding")
+                    print_(f".best unreadable ({exc}); reseeding")
                     save_params(best_path, state.params)
             else:
                 save_params(best_path, state.params)
@@ -277,14 +318,14 @@ def main(argv=None):
                     e_now = heldout_mpjpe_mm(state.params)
                     extra = f" heldout={e_now:.1f}mm"
                     # keep the best-generalizing params beside the latest
-                    if args.save and e_now < best_heldout:
+                    if save and e_now < best_heldout:
                         best_heldout = e_now
-                        save_params(args.save + ".best", state.params)
+                        save_params(save + ".best", state.params)
                         extra += " (best)"
-                print(f"step {i}: loss={m['total']:.4f} lm={m['landmark_l2_m'] * 1e3:.1f}mm{extra} ({dt:.1f}s)")
-            if args.save and (i + 1) % args.save_every == 0:
-                save_params(args.save, state.params)
-                save_train_state(args.save + ".train", state)
+                print_(f"step {i}: loss={m['total']:.4f} lm={m['landmark_l2_m'] * 1e3:.1f}mm{extra} ({dt:.1f}s)")
+            if save and (i + 1) % args.save_every == 0:
+                save_params(save, state.params)
+                save_train_state(save + ".train", state)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         seconds = time.time() - t0
@@ -294,11 +335,11 @@ def main(argv=None):
     if has_eval:
         e1 = heldout_mpjpe_mm(state.params)
         heldout = (e0, e1)
-        print(f"held-out tracked MPJPE: {e0:.1f} mm (init) -> {e1:.1f} mm ({e0 / max(e1, 1e-9):.1f}x better)")
-    if args.save:
-        save_params(args.save, state.params)
-        save_train_state(args.save + ".train", state)
-        print(f"saved {args.save} (+.train resume state)")
+        print_(f"held-out tracked MPJPE: {e0:.1f} mm (init) -> {e1:.1f} mm ({e0 / max(e1, 1e-9):.1f}x better)")
+    if save:
+        save_params(save, state.params)
+        save_train_state(save + ".train", state)
+        print_(f"saved {save} (+.train resume state)")
     return dict(state=state, metrics=history, seconds=seconds, heldout=heldout)
 
 

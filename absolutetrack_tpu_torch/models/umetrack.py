@@ -121,13 +121,20 @@ class UmeTrackModel(nn.Module):
 
     # -- NCHW internals ---------------------------------------------------
 
-    def _trunk(self, frame: FrameInputs) -> torch.Tensor:
-        """Backbone + FTL fusion -> (B, C, h, w) cam0-space features."""
-        b, v, hh, ww = frame.left_images.shape
+    def _trunk(self, frame: FrameInputs, view_shard=None) -> torch.Tensor:
+        """Backbone + FTL fusion -> (B, C, h, w) cam0-space features.
+
+        With ``view_shard`` (a ``parallel.Mesh`` whose model axis is > 1)
+        the backbone runs on this rank's views only and the features of
+        all views are gathered before the fusion."""
+        images = frame.left_images if view_shard is None else view_shard.local_views(frame.left_images)
+        b, v, hh, ww = images.shape
         # the crops enter in the trunk's weight type: cfg.dtype (a float64
         # copy of the model runs in float64)
-        feats = self.backbone(frame.left_images.reshape(b * v, 1, hh, ww).to(self.backbone.stem.weight.dtype))
+        feats = self.backbone(images.reshape(b * v, 1, hh, ww).to(self.backbone.stem.weight.dtype))
         feats = feats.reshape((b, v) + feats.shape[1:])
+        if view_shard is not None:
+            feats = view_shard.gather_views(feats)
         singlev_xfs = compute_singlev_xfs(frame.intrinsics, self.cfg.canonical_focal_length)
         return fuse_views(self.fusion, feats, singlev_xfs, frame.extrinsics, frame.view_mask, self.cfg)
 
@@ -176,14 +183,16 @@ class UmeTrackModel(nn.Module):
         return self._regress(state, frame, _nchw(img_features), skel)
 
     def regress_pose_use_skeleton(
-        self, state: TemporalState, frame: FrameInputs, skeleton: SkeletonInputs
+        self, state: TemporalState, frame: FrameInputs, skeleton: SkeletonInputs, view_shard=None
     ) -> Tuple[TemporalState, RegressorOutput]:
-        """Known-skeleton branch (reference umetrack_model.py:188-219)."""
-        feats = self._trunk(frame)
+        """Known-skeleton branch (reference umetrack_model.py:188-219);
+        ``view_shard`` as in ``_trunk``."""
+        feats = self._trunk(frame, view_shard)
         return self._regress(state, frame, feats, self._skeleton(skeleton, feats.shape[0]))
 
     def regress_pose_pred_skel_scale(
-        self, state: TemporalState, frame: FrameInputs
+        self, state: TemporalState, frame: FrameInputs, view_shard=None
     ) -> Tuple[TemporalState, RegressorOutput]:
-        """Unknown-skeleton branch (reference umetrack_model.py:221-242)."""
-        return self._regress(state, frame, self._trunk(frame), None)
+        """Unknown-skeleton branch (reference umetrack_model.py:221-242);
+        ``view_shard`` as in ``_trunk``."""
+        return self._regress(state, frame, self._trunk(frame, view_shard), None)

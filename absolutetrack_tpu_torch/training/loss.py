@@ -48,10 +48,15 @@ def pose_loss(
     weights: LossWeights = LossWeights(),
     gt_log_scale: Optional[torch.Tensor] = None,  # (B,)
     pred_wrist_left_m: Optional[torch.Tensor] = None,
+    mask_total: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, dict]:
-    """Scalar masked loss + metric dict. All wrist transforms left-handed."""
+    """Scalar masked loss + metric dict. All wrist transforms left-handed.
+
+    Every term is divided by ``max(mask_total, 1)``: the count of valid
+    samples, this batch's unless given (a data-sharded step passes the
+    count over the whole batch, so that its ranks' losses sum to it)."""
     m = sample_mask.to(torch.float32)
-    denom = torch.clamp(torch.sum(m), min=1.0)
+    denom = torch.clamp(torch.sum(m) if mask_total is None else mask_total, min=1.0)
 
     pred_wrist = out.wrist_xfs if pred_wrist_left_m is None else pred_wrist_left_m
 
@@ -103,8 +108,10 @@ def sequence_loss(
     sample_mask: torch.Tensor,  # (T, B)
     weights: LossWeights = LossWeights(),
     gt_log_scale: Optional[torch.Tensor] = None,  # (B,)
+    mask_total: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, dict]:
-    """Average ``pose_loss`` over an unrolled sequence (time-major)."""
+    """Average ``pose_loss`` over an unrolled sequence (time-major);
+    ``mask_total`` as in ``pose_loss``."""
     t, b = gt_joint_angles.shape[:2]
 
     def flat(x):
@@ -120,4 +127,5 @@ def sequence_loss(
         flat(sample_mask),
         weights,
         scale_flat,
+        mask_total=mask_total,
     )

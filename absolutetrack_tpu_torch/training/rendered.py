@@ -302,7 +302,11 @@ def _save_dataset(path: str, batch: SequenceBatch, hand_m: HandModel, meta: Opti
     arrs.update({f"h_{k}": np.asarray(getattr(hand_m, k)) for k in hand_m._fields if getattr(hand_m, k) is not None})
     if meta is not None:
         arrs["meta_json"] = np.frombuffer(json.dumps(meta, sort_keys=True).encode(), np.uint8)
-    np.savez_compressed(path, **arrs)
+    # renamed into place: the ranks of a sharded run build the same cache
+    # at once, and none may read another's partial file
+    tmp = f"{path}.{os.getpid()}.tmp.npz"
+    np.savez_compressed(tmp, **arrs)
+    os.replace(tmp, path)
 
 
 def _load_dataset(path: str) -> Tuple[SequenceBatch, HandModel, Optional[dict]]:

@@ -9,7 +9,7 @@ path's shape (4 slots x 96x96), at the non-pipelined lockstep frame's
 (24 recordings x 4 slots, 96 slots) and on edge cases (flat planes,
 crop rows that are no multiple of 8, planes off a 16-byte boundary, one
 slot, 70,000 slots), timing the two main shapes by CUDA-graph replay
-(device time) and by eager calls. Then it drives six paths at full
+(device time) and by eager calls. Then it drives seven paths at full
 ``ModelConfig()`` width with TF32 off, K1's launches counted from 0 just
 before each:
 
@@ -71,12 +71,27 @@ before each:
   busy time over two steps; one step (2 windows, T=2) against the port's
   CPU (loss, gradients per leaf, params) and the card's own spread over
   two identical steps; K1 at the rendered shape against its plain version
-  in the f32, bf16 and int8 row modes, with its times.
+  in the f32, bf16 and int8 row modes, with its times;
+* parallel (``parallel_phase``): sharding over processes, each world's
+  ranks spawned by ``spawn_world`` (``python3 chip_smoke.py --rank R
+  <spec>``, a file store, every rank killed on a failure): the protocol's
+  label tree through ``multiprocess_eval`` in one process without a
+  group, at world 1 over NCCL (its init and first-collective times,
+  ``allreduce_metrics``'s) and over 2 gloo ranks sharing the card (NCCL
+  refuses two ranks on one card), merged metrics against the group-less
+  run; in the same world the lockstep phase's recordings through
+  ``track_recordings_batched(mesh=)`` (each rank 12: K1 at N=384 a chunk)
+  against one process, and one train step at (data, model) = (2, 1) and
+  (1, 2) on a batch whose masks differ between its halves, against one
+  process on the whole batch and on the same partition (``partition_grads``);
+  K1 at N=384 against its plain version, with its times; the demo's
+  shared-memory frame ring (``ring_transport``, the native library built
+  from source), its ms a frame.
 
 Prints the card's name and power limit first, one ``{"path": ...}``, one
 ``{"lockstep": ...}``, one ``{"demo": ...}``, one ``{"protocol": ...}``, one
-``{"data": ...}``, one ``{"train": ...}`` and one ``{"kernels": [...]}`` line
-and, last,
+``{"data": ...}``, one ``{"train": ...}``, one ``{"parallel": ...}`` and one
+``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``. Any failed check raises; without a CUDA
 device, or without the port beside it, it exits non-zero and prints no
 result.
@@ -160,6 +175,24 @@ TRAIN_LOSS_REL = 1e-5
 TRAIN_GRAD_TOL = 1e-4
 TRAIN_GRAD_NORM_REL = 1e-5
 TRAIN_PARAM_TOL = 1e-6
+PARALLEL_WORLD = 2  # ranks of the sharded world: the card's machine has one card, so they share it under gloo
+PARALLEL_LAYOUTS = ((2, 1), (1, 2))  # (data, model) of the sharded train and eval steps
+PARALLEL_BATCH = 4  # samples of the sharded steps' batch, T = PARALLEL_T frames
+PARALLEL_T = 2
+PARALLEL_TIMEOUT_S = 600  # a world's limit; a dead rank fails its peers within init_distributed's 120 s
+PARALLEL_EVAL_REL = 1e-6  # multiprocess_eval's merged err_sum against one process (tests/test_multiprocess.py)
+PARALLEL_EVAL_STEP_REL = 1e-4  # the sharded eval step's err_sum_m against one process (tests/test_parallel.py)
+PARALLEL_OUTPUT_TOL = 1e-4  # its joint angles and wrists (tests/test_parallel.py)
+PARALLEL_LANDMARK_MM = 1e-2  # the sharded lockstep's landmarks against one process (tests/test_parallel.py)
+# A sharded step's loss and gradients against one process that computes the
+# same data blocks and views at the same shapes (``partition_grads``): only
+# the order of the ranks' f32 sum differs. Against the whole batch in one
+# process the bounds are the train phase's for the loss and the largest |g|;
+# its norm is reported: cuDNN picks other algorithms at half the batch, which
+# moved the gradient by 1.6e-5 in norm on the H100 with no collective at all
+# (scripts/sharded_step_noise.py; 8.5e-8 with cuDNN off).
+PARALLEL_PARTITION_REL = 1e-6
+RING_FRAMES = 300  # frames pushed through the demo's shared-memory ring
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 
@@ -2432,6 +2465,593 @@ def _train_on_card(root, pt, window) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the parallel phase: worlds of ranks over torch.distributed
+# --------------------------------------------------------------------------
+
+
+def spawn_world(target: str, kwargs: dict, world: int, workdir, backend: str, device: str,
+                timeout: float = PARALLEL_TIMEOUT_S, threads=None) -> list:
+    """Run ``target`` (a function of this script) on ``world`` ranks: each
+    a fresh ``python3 chip_smoke.py --rank R <spec>`` process that joins a
+    process group over a file store in ``workdir`` (no port to collide),
+    with ``backend``, on ``device``, and calls ``target(**kwargs)``.
+    Returns each rank's return value in rank order, with the seconds its
+    ``init_distributed`` took as ``init_s``. If a rank fails or the
+    ``timeout`` passes, every rank is killed and the error carries each
+    rank's log. ``threads`` caps each rank's intra-op threads."""
+    import pickle
+
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    spec = workdir / "spec.pkl"
+    spec.write_bytes(pickle.dumps(dict(
+        target=target, kwargs=kwargs, world=world, store=f"file://{(workdir / 'store').resolve()}",
+        backend=backend, device=device, threads=threads,
+    )))
+    procs, logs, failed = [], [], None
+    try:
+        for r in range(world):
+            logs.append(open(workdir / f"rank{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--rank", str(r), str(spec)],
+                stdout=logs[-1], stderr=subprocess.STDOUT,
+            ))
+        deadline = time.monotonic() + timeout
+        while failed is None and any(p.poll() is None for p in procs):
+            failed = next((f"rank {r} exited {p.returncode}" for r, p in enumerate(procs) if p.poll()), None)
+            if time.monotonic() > deadline:
+                failed = f"timed out after {timeout} s"
+            time.sleep(0.05)
+        failed = failed or next((f"rank {r} exited {p.returncode}" for r, p in enumerate(procs) if p.returncode), None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    if failed:
+        tails = "".join(f"\n--- rank {r} ---\n" + (workdir / f"rank{r}.log").read_text()[-4000:] for r in range(world))
+        raise RuntimeError(f"{target} on {world} ranks: {failed}{tails}")
+    return [pickle.loads((workdir / f"rank{r}.out").read_bytes()) for r in range(world)]
+
+
+def _rank_main(rank: int, spec_path: str) -> int:
+    """One rank of ``spawn_world``."""
+    import pickle
+
+    import torch
+
+    from absolutetrack_tpu_torch.parallel import distributed
+
+    spec = pickle.loads(Path(spec_path).read_bytes())
+    if spec["threads"]:
+        torch.set_num_threads(spec["threads"])
+    t0 = time.perf_counter()
+    distributed.init_distributed(spec["store"], spec["world"], rank, spec["backend"], spec["device"])
+    init_s = time.perf_counter() - t0
+    out = dict(globals()[spec["target"]](**spec["kwargs"]), init_s=init_s)
+    Path(spec_path).with_name(f"rank{rank}.out").write_bytes(pickle.dumps(out))
+    if distributed.initialized():
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def parallel_batch(cfg, b: int, t: int, seed: int):
+    """The sharded steps' batch: ``synthetic_sequence_batch(b, t)`` (numpy)
+    with sample masks that differ between the halves of the batch (the
+    first half has fewer valid samples, so a mean of per-half means is
+    not the batch's mean), and the scene's hand model in meters, (b,)."""
+    from absolutetrack_tpu_torch.kinematics.hand_model import hand_model_from_dict, scaled_hand_model
+    from absolutetrack_tpu_torch.training.synthetic import synthetic_sequence_batch
+
+    batch = synthetic_sequence_batch(b, t=t, cfg=cfg, seed=seed)
+    mask = np.ones((t, b), bool)
+    mask[:, 0] = False  # the first half has fewer valid samples than the second
+    mask[0, 1] = False
+    hand = scaled_hand_model(hand_model_from_dict(synthetic_hand_model()), 0.001)
+    return batch._replace(sample_mask=mask), hand.map(lambda x: x.expand((b,) + x.shape))
+
+
+def _steps_model(cfg, seed: int, checkpoint, device):
+    import torch
+
+    from absolutetrack_tpu_torch.apps import eval_lib
+    from absolutetrack_tpu_torch.models.umetrack import UmeTrackModel
+
+    if checkpoint:
+        return eval_lib.build_model(checkpoint, cfg, device=device)
+    return UmeTrackModel(cfg, device=device, generator=torch.Generator().manual_seed(seed))
+
+
+def steps_drill(seed: int, layouts, batch: int, t: int, tiny: bool, device: str, checkpoint=None,
+                branch: str = "known") -> dict:
+    """One rank's sharded train and eval steps, for each (data, model)
+    layout of the world: from the model of ``checkpoint`` (else seeded)
+    on ``parallel_batch``, the
+    whole batch's loss, metrics and gradients before the optimizer
+    (``loss_and_grads``), the eval step's outputs in the known and unknown
+    branches, and the params after one train step. Rank 0 returns them all;
+    every rank returns its loss and a digest of its params after the step,
+    which must agree across ranks."""
+    import hashlib
+
+    import torch
+
+    from absolutetrack_tpu_torch.models.config import ModelConfig
+    from absolutetrack_tpu_torch.models.layers import set_conv_precision
+    from absolutetrack_tpu_torch.parallel import make_mesh
+    from absolutetrack_tpu_torch.training import train
+
+    set_conv_precision("highest")
+    cfg = ModelConfig.tiny() if tiny else ModelConfig()
+    whole, hand = parallel_batch(cfg, batch, t, seed)
+    out = {}
+    for data, model_ax in layouts:
+        mesh = make_mesh(data=data, model=model_ax, devices=device)
+        model = _steps_model(cfg, seed, checkpoint, mesh.device)
+        b, h = train.local_batch(mesh, whole, hand)
+        loss, metrics, grads = train.loss_and_grads(model.requires_grad_(True), b, h, cfg, branch, mesh=mesh)
+        evals = {br: train.make_eval_step(cfg, br, mesh)(model, b, h) for br in ("known", "unknown")}
+        opt = train.make_optimizer(TRAIN_LR)
+        state = train.init_train_state(model, opt)
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, step_metrics = train.make_train_step(cfg, opt, branch, mesh=mesh)(state, b, h)
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        params = {k: v.detach().cpu().numpy() for k, v in model.named_parameters()}
+        digest = hashlib.sha1(b"".join(params[k].tobytes() for k in sorted(params))).hexdigest()
+        res = dict(loss=float(loss), step_loss=float(step_metrics["total"]), params_digest=digest, step_s=step_s)
+        if mesh.rank == 0:
+            res.update(
+                metrics={k: float(v) for k, v in metrics.items()},
+                grads={k: g.cpu().numpy() for k, g in grads.items()},
+                evals={br: {k: None if v is None else v.cpu().numpy() for k, v in ev.items()} for br, ev in evals.items()},
+                params=params,
+            )
+        out[(data, model_ax)] = res
+    return out
+
+
+def one_process_steps(seed: int, batch: int, t: int, tiny: bool, device: str, checkpoint=None,
+                      branch: str = "known") -> dict:
+    """``steps_drill``'s numbers from one process without a mesh."""
+    from absolutetrack_tpu_torch.models.config import ModelConfig
+    from absolutetrack_tpu_torch.models.layers import set_conv_precision
+    from absolutetrack_tpu_torch.training import train
+
+    set_conv_precision("highest")
+    cfg = ModelConfig.tiny() if tiny else ModelConfig()
+    b, h = parallel_batch(cfg, batch, t, seed)
+    model = _steps_model(cfg, seed, checkpoint, device)
+    loss, metrics, grads = train.loss_and_grads(model.requires_grad_(True), b, h, cfg, branch)
+    evals = {br: train.make_eval_step(cfg, br)(model, b, h) for br in ("known", "unknown")}
+    opt = train.make_optimizer(TRAIN_LR)
+    train.make_train_step(cfg, opt, branch)(train.init_train_state(model, opt), b, h)
+    return dict(
+        loss=float(loss), metrics={k: float(v) for k, v in metrics.items()},
+        grads={k: g.cpu().numpy() for k, g in grads.items()},
+        evals={br: {k: None if v is None else v.cpu().numpy() for k, v in ev.items()} for br, ev in evals.items()},
+        params={k: v.detach().cpu().numpy() for k, v in model.named_parameters()},
+    )
+
+
+class _ViewsInProcess:
+    """A mesh's model axis acted out in one process, for one model index:
+    ``local_views`` keeps that rank's views, ``gather_views`` adds the
+    other ranks' features, computed by the same backbone at the same
+    shapes without gradients (what the rank all-gathers)."""
+
+    def __init__(self, model, n: int, index: int):
+        self.model, self.n, self.index = model, n, index
+
+    def local_views(self, x):
+        self._images = x
+        k = x.shape[1] // self.n
+        return x[:, self.index * k : (self.index + 1) * k]
+
+    def gather_views(self, feats):
+        import torch
+
+        k = self._images.shape[1] // self.n
+        parts = []
+        for m in range(self.n):
+            if m == self.index:
+                parts.append(feats)
+                continue
+            images = self._images[:, m * k : (m + 1) * k]
+            b, v, hh, ww = images.shape
+            with torch.no_grad():
+                other = self.model.backbone(images.reshape(b * v, 1, hh, ww).to(self.model.backbone.stem.weight.dtype))
+            parts.append(other.reshape((b, v) + other.shape[1:]))
+        return torch.cat(parts, dim=1)
+
+
+def partition_grads(seed: int, layout, batch: int, t: int, tiny: bool, device: str, checkpoint=None,
+                    branch: str = "known") -> dict:
+    """The gradients that a (data, model) ``layout`` sums, computed in one
+    process with no collective: each data block's loss over the whole
+    batch's valid count, each model index's views through the backbone
+    (the others' features gathered in without gradients, ``_ViewsInProcess``),
+    combined as ``loss_and_grads`` combines the ranks' (float64 here). On
+    the card cuDNN picks its algorithms by shape, so a data block's or a
+    view's gradients differ from the whole batch's in the last bits (and a
+    ReLU at rounding distance of 0 may flip): this, not the whole batch, is
+    what the ranks' sum must equal to the summation order."""
+    import torch
+
+    from absolutetrack_tpu_torch.models.config import ModelConfig
+    from absolutetrack_tpu_torch.models.layers import set_conv_precision
+    from absolutetrack_tpu_torch.parallel import Mesh
+    from absolutetrack_tpu_torch.training import train
+
+    set_conv_precision("highest")
+    cfg = ModelConfig.tiny() if tiny else ModelConfig()
+    whole, hand = parallel_batch(cfg, batch, t, seed)
+    model = _steps_model(cfg, seed, checkpoint, device).requires_grad_(True)
+    total = torch.tensor(float(whole.sample_mask.sum()), device=model.device)
+    data, n_model = layout
+    params = dict(model.named_parameters())
+    grads = {n: np.zeros(p.shape) for n, p in params.items()}
+    loss = 0.0
+    for d in range(data):
+        # data rank d's block (no process group: the mesh only places it)
+        b, h = train.local_batch(Mesh(data, n_model, d * n_model, model.device), whole, hand)
+        for m in range(n_model):
+            shard = _ViewsInProcess(model, n_model, m) if n_model > 1 else None
+            with torch.enable_grad():
+                part, _ = train.loss_fn(model, b, h, cfg, branch, mask_total=total, view_shard=shard)
+                gs = torch.autograd.grad(part, list(params.values()), allow_unused=True)
+            for (n, p), g in zip(params.items(), gs):
+                if g is not None and (m == 0 or n.startswith("backbone.")):
+                    grads[n] += g.double().cpu().numpy()
+            if m == 0:
+                loss += float(part.detach())
+    return dict(loss=loss, grads=grads)
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """Gradients against gradients: the largest error over the largest |g|
+    of all leaves, the worst leaf over its own largest, and in norm."""
+    gmax = max(float(np.abs(g).max()) for g in want.values())
+    norm = math.sqrt(sum(float(((got[k] - g) ** 2).sum()) for k, g in want.items()))
+    return dict(
+        of_largest=max(float(np.abs(got[k] - g).max()) for k, g in want.items()) / gmax,
+        worst_leaf_of_its_largest=max(
+            float(np.abs(got[k] - g).max() / max(np.abs(g).max(), 1e-30)) for k, g in want.items()
+        ),
+        norm_rel=norm / math.sqrt(sum(float((g ** 2).sum()) for g in want.values())),
+    )
+
+
+def steps_errors(got: dict, want: dict) -> dict:
+    """A sharded layout's numbers against one process's: the loss's
+    relative error, the gradients' largest error over the largest |g| of
+    all leaves, over each leaf's own largest (the worst leaf) and in norm,
+    the params after the step over each leaf's largest value, and the eval
+    step's sums and outputs."""
+    g = grad_errors(got["grads"], want["grads"])
+    ek, wk = got["evals"]["known"], want["evals"]["known"]
+    eu, wu = got["evals"]["unknown"], want["evals"]["unknown"]
+    return dict(
+        loss_rel=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+        grad_err_of_largest=g["of_largest"],
+        grad_worst_leaf_of_its_largest=g["worst_leaf_of_its_largest"],
+        grad_norm_rel=g["norm_rel"],
+        params_err_of_leaf_largest=max(
+            float(np.abs(got["params"][k] - p).max() / max(np.abs(p).max(), 1e-30)) for k, p in want["params"].items()
+        ),
+        err_sum_rel=abs(float(ek["err_sum_m"]) - float(wk["err_sum_m"])) / abs(float(wk["err_sum_m"])),
+        err_count_equal=float(ek["err_count"]) == float(wk["err_count"]),
+        joint_angles_max=float(np.abs(ek["joint_angles"] - wk["joint_angles"]).max()),
+        wrist_xfs_max=float(np.abs(ek["wrist_xfs"] - wk["wrist_xfs"]).max()),
+        unknown_scales_rel=float(np.abs(eu["scales"] - wu["scales"]).max() / np.abs(wu["scales"]).max()),
+    )
+
+
+def eval_drill(label_files, checkpoint: str, max_frames: int, tiny: bool, device: str) -> dict:
+    """One rank of ``multiprocess_eval.run_distributed_eval`` in the
+    world it joined, K1's launches counted from 0 before it, the time of
+    the group's first collective (a barrier: NCCL brings its communicator
+    up there) and of one ``allreduce_metrics`` of its four sums."""
+    import torch
+
+    from absolutetrack_tpu_torch.models.config import ModelConfig
+    from absolutetrack_tpu_torch.models.layers import set_conv_precision
+    from absolutetrack_tpu_torch.ops import warp_kernel
+    from absolutetrack_tpu_torch.parallel import allreduce_metrics, multiprocess_eval
+
+    set_conv_precision("highest")
+    t0 = time.perf_counter()
+    torch.distributed.barrier()
+    first_collective_s = time.perf_counter() - t0
+    warp_kernel.K1.reset_counts()
+    t0 = time.perf_counter()
+    merged = multiprocess_eval.run_distributed_eval(
+        label_files, cfg=ModelConfig.tiny() if tiny else None, checkpoint=checkpoint, max_frames=max_frames,
+        device=device,
+    )
+    wall = time.perf_counter() - t0
+    shapes = {f"N={n}": k for (n, _), k in sorted(warp_kernel.K1.shapes.items())}
+    reduce_ms = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        allreduce_metrics({k: merged[k] for k in ("err_sum", "err_count", "n_frames", "n_recordings")})
+        reduce_ms.append((time.perf_counter() - t1) * 1e3)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return dict(merged=merged, wall_s=wall, k1_launches=shapes, allreduce_ms=float(np.median(reduce_ms)),
+                first_collective_s=first_collective_s)
+
+
+def lockstep_drill(seed: int, recordings: int, frames: int, tiny: bool, device: str) -> dict:
+    """One rank of ``eval_lib.track_recordings_batched(mesh=)`` over a
+    data mesh of the whole world: the lockstep phase's recordings (each
+    rank tracks its contiguous block), K1's launches counted from 0 before
+    it, its wall time, and the results of all recordings."""
+    import torch
+
+    from absolutetrack_tpu_torch.apps import eval_lib
+    from absolutetrack_tpu_torch.models.config import ModelConfig
+    from absolutetrack_tpu_torch.models.layers import set_conv_precision
+    from absolutetrack_tpu_torch.models.umetrack import UmeTrackModel
+    from absolutetrack_tpu_torch.ops import warp_kernel
+    from absolutetrack_tpu_torch.parallel import make_mesh
+
+    set_conv_precision("highest")
+    mesh = make_mesh(devices=device)
+    cfg = ModelConfig.tiny() if tiny else ModelConfig()
+    net = damped(UmeTrackModel(cfg, device=mesh.device, generator=torch.Generator().manual_seed(seed)))
+    recs = scene_recordings(build_scene(seed + 1, n_frames=frames + recordings - 1), range(recordings), frames)
+    run = lambda **kw: eval_lib.track_recordings_batched(  # noqa: E731
+        net, recs, chunk_size=LOCKSTEP_CHUNK, pipelined=True, mesh=mesh, **kw
+    )
+    run(max_frames=LOCKSTEP_CHUNK)  # warm-up: cuDNN plans, the allocator
+    warp_kernel.K1.reset_counts()
+    t0 = time.perf_counter()
+    results = run()
+    wall = time.perf_counter() - t0
+    shapes = {f"N={n}": k for (n, _), k in sorted(warp_kernel.K1.shapes.items())}
+    return dict(results=results, wall_s=wall, k1_launches=shapes, frames_per_s=recordings * frames / wall)
+
+
+def world_drill(parts: dict, tiny: bool, device: str) -> dict:
+    """One rank's drills, in order: ``parts`` maps "eval", "lockstep",
+    "steps", "allreduce" or "cli" to their keyword arguments. "allreduce"
+    reduces ``values[rank]`` with ``allreduce_metrics``; "cli" is a list of
+    (module, argv) whose ``main(argv)`` runs, with its printed lines."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    from absolutetrack_tpu_torch.parallel import allreduce_metrics
+
+    drills = {"eval": eval_drill, "lockstep": lockstep_drill, "steps": steps_drill}
+    out = {}
+    for name, kw in parts.items():
+        if name == "allreduce":
+            out[name] = allreduce_metrics(kw["values"][torch.distributed.get_rank()])
+        elif name == "cli":
+            out[name] = []
+            for module, argv in kw:
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    ret = importlib.import_module(module).main(argv)
+                out[name].append(dict(lines=buf.getvalue().splitlines(), ret=ret))
+        else:
+            out[name] = drills[name](tiny=tiny, device=device, **kw)
+    return out
+
+
+def _launch_sum(shapes: dict) -> int:
+    return sum(shapes.values())
+
+
+def _sum_counts(counts) -> dict:
+    total = {}
+    for c in counts:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def parallel_phase(seed: int, device: str = "cuda", tiny: bool = False, frames: int = PROTOCOL_FRAMES,
+                   recordings: int = LOCKSTEP_RECORDINGS, lockstep_frames: int = LOCKSTEP_FRAMES,
+                   threads=None) -> dict:
+    """Sharding over processes, at full ``ModelConfig()`` width on the card
+    (``tiny`` and ``device="cpu"``: its CPU rehearsal), each world spawned
+    by ``spawn_world``: ``multiprocess_eval`` over the protocol phase's
+    label tree from its reference-named ``.pt``, in one process without a
+    group, at world 1 (NCCL on the card, with its init time and
+    ``allreduce_metrics``'s) and over 2 gloo ranks (both on ``cuda:0``:
+    NCCL refuses two ranks on one card), merged metrics against the
+    group-less run; in the same 2-rank world the sharded lockstep
+    (``track_recordings_batched(mesh=)``, the lockstep phase's recordings,
+    each rank its half: K1 at N = 384 a chunk on the card) against one
+    process, and one train step at (data, model) = (2, 1) and (1, 2)
+    against one process (loss, gradients before the optimizer, params,
+    the eval step, and the gradients against one process computing the
+    same partition, ``partition_grads``); on the card also K1 at N = 384
+    against its plain version, with its times; last, the demo's frame ring
+    (``ring_transport``). K1's launches are every rank's together."""
+    import tempfile
+
+    import torch
+
+    from absolutetrack_tpu_torch.apps import eval_lib
+    from absolutetrack_tpu_torch.models.config import ModelConfig
+    from absolutetrack_tpu_torch.models.layers import set_conv_precision
+    from absolutetrack_tpu_torch.models.umetrack import UmeTrackModel
+    from absolutetrack_tpu_torch.ops import warp_kernel
+    from absolutetrack_tpu_torch.parallel import multiprocess_eval
+
+    set_conv_precision("highest")
+    on_card = device == "cuda"
+    cfg = ModelConfig.tiny() if tiny else ModelConfig()
+    r = PROTOCOL_RECORDINGS
+    report = dict(world=PARALLEL_WORLD, backend_world1="nccl" if on_card else "gloo", backend_world2="gloo")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        pt = root / "reference.pt"
+        torch.save(reference_state_dict(cfg, seed), pt)
+        data, _ = protocol_tree(root, build_scene(seed, frames + r - 1, mesh=True), r, frames)
+        files = sorted(str(p) for p in data.rglob("*.json"))
+
+        # 1. multiprocess_eval: without a group, at world 1, at world 2
+        t0 = time.perf_counter()
+        alone = multiprocess_eval.run_distributed_eval(
+            files, cfg=cfg if tiny else None, checkpoint=str(pt), max_frames=frames, device=device
+        )
+        alone_s = time.perf_counter() - t0
+        eval_kw = dict(label_files=files, checkpoint=str(pt), max_frames=frames)
+        (w1,) = spawn_world("world_drill", dict(parts={"eval": eval_kw}, tiny=tiny, device=device), 1,
+                            root / "w1", report["backend_world1"], device, threads=threads)
+        steps_kw = dict(seed=seed, layouts=PARALLEL_LAYOUTS, batch=PARALLEL_BATCH, t=PARALLEL_T, checkpoint=str(pt))
+        lock_kw = dict(seed=seed, recordings=recordings, frames=lockstep_frames)
+        w2 = spawn_world("world_drill", dict(parts={"eval": eval_kw, "lockstep": lock_kw, "steps": steps_kw},
+                                             tiny=tiny, device=device),
+                         PARALLEL_WORLD, root / "w2", "gloo", device, threads=threads)
+        one = one_process_steps(seed, PARALLEL_BATCH, PARALLEL_T, tiny, device, checkpoint=str(pt))
+        partitions = {layout: partition_grads(seed, layout, PARALLEL_BATCH, PARALLEL_T, tiny, device, str(pt))
+                      for layout in PARALLEL_LAYOUTS}
+    want = {k: alone[k] for k in ("err_sum", "err_count", "n_frames", "n_recordings")}
+    for name, merged in [("world1", w1["eval"]["merged"])] + [(f"world2_rank{i}", w["eval"]["merged"]) for i, w in enumerate(w2)]:
+        counts_equal = all(merged[k] == want[k] for k in ("err_count", "n_frames", "n_recordings"))
+        rel = abs(merged["err_sum"] - want["err_sum"]) / abs(want["err_sum"])
+        if not counts_equal or rel > PARALLEL_EVAL_REL or want["err_count"] == 0:
+            raise RuntimeError(f"multiprocess_eval {name}: {merged} against one process {alone}")
+    report["eval"] = dict(
+        recordings=r, frames_per_recording=frames, alone=alone, alone_s=alone_s,
+        world1=dict(merged=w1["eval"]["merged"], init_s=w1["init_s"], wall_s=w1["eval"]["wall_s"],
+                    first_collective_s=w1["eval"]["first_collective_s"],
+                    allreduce_ms=w1["eval"]["allreduce_ms"], k1_launches=w1["eval"]["k1_launches"]),
+        world2=[dict(merged=w["eval"]["merged"], init_s=w["init_s"], wall_s=w["eval"]["wall_s"],
+                     first_collective_s=w["eval"]["first_collective_s"],
+                     allreduce_ms=w["eval"]["allreduce_ms"], k1_launches=w["eval"]["k1_launches"]) for w in w2],
+        err_sum_rel_tol=PARALLEL_EVAL_REL,
+        frames_per_s=dict(alone=r * frames / alone_s, world1=r * frames / w1["eval"]["wall_s"],
+                          world2=r * frames / max(w["eval"]["wall_s"] for w in w2)),
+    )
+
+    # 2. the sharded lockstep against one process
+    net = damped(UmeTrackModel(cfg, device=device, generator=torch.Generator().manual_seed(seed)))
+    recs = scene_recordings(build_scene(seed + 1, n_frames=lockstep_frames + recordings - 1), range(recordings),
+                            lockstep_frames)
+    whole = eval_lib.track_recordings_batched(net, recs, chunk_size=LOCKSTEP_CHUNK, pipelined=True)
+    lm = 0.0
+    for w in w2:
+        got = w["lockstep"]["results"]
+        if len(got) != recordings:
+            raise RuntimeError(f"sharded lockstep: a rank returned {len(got)} of {recordings} results")
+        for a, b in zip(got, whole):
+            if not np.array_equal(a.valid_tracking, b.valid_tracking) or not a.valid_tracking.any():
+                raise RuntimeError("sharded lockstep: validity differs from one process, or no hand tracked")
+            v = a.valid_tracking
+            lm = max(lm, float(np.linalg.norm(a.tracked_keypoints - b.tracked_keypoints, axis=-1)[v].max()))
+    if lm > PARALLEL_LANDMARK_MM:
+        raise RuntimeError(f"sharded lockstep against one process: {lm} mm")
+    report["lockstep"] = dict(
+        recordings=recordings, frames_per_recording=lockstep_frames, chunk=LOCKSTEP_CHUNK,
+        ranks=[dict(wall_s=w["lockstep"]["wall_s"], frames_per_s_of_all=w["lockstep"]["frames_per_s"],
+                    k1_launches=w["lockstep"]["k1_launches"]) for w in w2],
+        vs_one_process_landmark_max_err_mm=lm, tolerance_mm=PARALLEL_LANDMARK_MM,
+    )
+
+    # 3. the train and eval steps against one process
+    steps = {}
+    for layout in PARALLEL_LAYOUTS:
+        ranks = [w["steps"][layout] for w in w2]
+        if len({x["params_digest"] for x in ranks}) != 1:
+            raise RuntimeError(f"layout {layout}: the ranks' params differ after the step")
+        errs = steps_errors(ranks[0], one)
+        part = partitions[layout]
+        same_partition = dict(grad_errors(ranks[0]["grads"], part["grads"]),
+                              loss_rel=abs(ranks[0]["loss"] - part["loss"]) / abs(part["loss"]))
+        steps[f"{layout[0]}x{layout[1]}"] = dict(errs, step_s=[x["step_s"] for x in ranks],
+                                                 vs_one_process_same_partition=same_partition)
+        if not (same_partition["loss_rel"] <= PARALLEL_PARTITION_REL
+                and same_partition["of_largest"] <= PARALLEL_PARTITION_REL
+                and same_partition["norm_rel"] <= PARALLEL_PARTITION_REL):
+            raise RuntimeError(f"sharded step {layout} against one process on the same partition: {same_partition}")
+        if not (errs["loss_rel"] <= TRAIN_LOSS_REL and errs["grad_err_of_largest"] <= TRAIN_GRAD_TOL
+                and errs["err_count_equal"]
+                and errs["err_sum_rel"] <= PARALLEL_EVAL_STEP_REL and errs["joint_angles_max"] <= PARALLEL_OUTPUT_TOL
+                and errs["wrist_xfs_max"] <= PARALLEL_OUTPUT_TOL and errs["params_err_of_leaf_largest"] <= 1e-2):
+            raise RuntimeError(f"sharded step {layout} against one process: {errs}")
+    report["steps"] = dict(
+        batch=PARALLEL_BATCH, frames=PARALLEL_T, layouts=steps,
+        tolerances=dict(loss_rel=TRAIN_LOSS_REL, grad_err_of_largest=TRAIN_GRAD_TOL,
+                        err_sum_rel=PARALLEL_EVAL_STEP_REL, outputs=PARALLEL_OUTPUT_TOL, params_of_leaf_largest=1e-2,
+                        same_partition_loss_grads_largest_and_norm=PARALLEL_PARTITION_REL),
+    )
+
+    if on_card:  # the card's f32 frames and models sample with f32 rows
+        p = cfg.input_size[0] * cfg.input_size[1]
+        chunks = -(-frames // LOCKSTEP_CHUNK)
+        want = {f"N={LOCKSTEP_CHUNK * 4}": r * chunks}
+        got = [w1["eval"]["k1_launches"], _sum_counts(w["eval"]["k1_launches"] for w in w2)]
+        per_rank = recordings // PARALLEL_WORLD * LOCKSTEP_CHUNK * 4
+        lock_want = {f"N={per_rank}": -(-lockstep_frames // LOCKSTEP_CHUNK)}
+        if got != [want, want] or any(w["lockstep"]["k1_launches"] != lock_want for w in w2):
+            raise RuntimeError(f"parallel K1 launches: eval {got}, want {want} in each world; lockstep "
+                               f"{[w['lockstep']['k1_launches'] for w in w2]}, want {lock_want} a rank (P={p})")
+    launches = {"parallel_eval_world1": _launch_sum(w1["eval"]["k1_launches"]),
+                "parallel_eval_world2": sum(_launch_sum(w["eval"]["k1_launches"]) for w in w2),
+                "parallel_lockstep_world2": sum(_launch_sum(w["lockstep"]["k1_launches"]) for w in w2)}
+    report["k1_launches_by_path"] = launches
+    report["k1_launches"] = sum(launches.values())
+
+    # 4. K1 at the sharded chunk's shape, N = 384, against its plain version
+    if on_card:
+        half = recs[: recordings // PARALLEL_WORLD]
+        recorder = _RecordCalls(warp_kernel.K1)
+        warp_kernel.K1 = recorder
+        try:
+            eval_lib.track_recordings_batched(net, half, chunk_size=LOCKSTEP_CHUNK, pipelined=True,
+                                              max_frames=LOCKSTEP_CHUNK)
+        finally:
+            warp_kernel.K1 = recorder.kernel
+        images, ii, xs, ys, valid_hw, _ = recorder.calls[0]
+        del recorder
+        err = max(k1_error(images, ii, xs, ys, valid_hw, mode) for mode in row_modes(images.dtype))
+        if err > K1_TOL:
+            raise RuntimeError(f"K1 at N={xs.shape[0]}: max |err| {err} > {K1_TOL}")
+        report["k1_n384"] = dict(k1_timings(images, ii, xs, ys, iters=20), max_abs_err=err, n=int(xs.shape[0]))
+        del images, ii, xs, ys
+        torch.cuda.empty_cache()
+    report["ring"] = ring_transport()
+    return report
+
+
+def ring_transport(frames: int = RING_FRAMES) -> dict:
+    """The demo's frame ring (``apps/demo/multiprocess.py``, the native
+    library built from ``native/abstrack_host.cpp`` on this machine): a
+    spawned capture process pushes one static (2, 480, 640) uint8 frame
+    ``frames`` times without a pause; this process pops. The ms a frame
+    between the first frame received and the last, and the frames that
+    drop-oldest skipped."""
+    from absolutetrack_tpu_torch.apps.demo.multiprocess import run_multiprocess_demo
+    from absolutetrack_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    native.HOST.build()
+    build_s = time.perf_counter() - t0
+    seen = []
+    n = run_multiprocess_demo(max_frames=frames, source_kind="synthetic_static", throttle_s=0.0,
+                              on_frame=lambda i, mono: seen.append((i, mono.shape, mono.dtype, time.perf_counter())))
+    idx = [s[0] for s in seen]
+    if n < 2 or idx != sorted(set(idx)) or any(s[1:3] != ((2, 480, 640), np.uint8) for s in seen):
+        raise RuntimeError(f"frame ring: {n} frames, indices {idx[:10]}...")
+    return dict(frames_pushed=frames, frames_received=n, skipped=idx[-1] + 1 - n, build_s=build_s,
+                transport_ms_per_frame=(seen[-1][3] - seen[0][3]) / (n - 1) * 1e3)
+
+
 def main(seed: int = 0) -> int:
     import torch
 
@@ -2468,6 +3088,7 @@ def main(seed: int = 0) -> int:
     protocol = protocol_phase(seed)
     data = data_phase(seed)
     train = train_phase(seed)
+    parallel = parallel_phase(seed)
 
     n768 = lockstep["k1_n768"]
     print(json.dumps({"path": path, "card": smi}))
@@ -2476,6 +3097,7 @@ def main(seed: int = 0) -> int:
     print(json.dumps({"protocol": protocol, "card": smi}))
     print(json.dumps({"data": data, "card": smi}))
     print(json.dumps({"train": train, "card": smi}))
+    print(json.dumps({"parallel": parallel, "card": smi}))
     print(json.dumps({"kernels": [{
         "name": "bilinear_sample",
         "route": "cuda",
@@ -2487,7 +3109,7 @@ def main(seed: int = 0) -> int:
                     "pallas_warp.py:174-186 (bf16 row mix, row g)",
         "launches": path["k1_launches"] + lockstep["k1_launches"]
         + demo["parity"]["k1_launches"] + demo["serving"]["k1_launches"] + protocol["k1_launches"]
-        + data["k1_launches"] + train["k1_launches"],
+        + data["k1_launches"] + train["k1_launches"] + parallel["k1_launches"],
         "launches_by_path": {
             "sequential": path["k1_launches"], "lockstep": lockstep["k1_launches"],
             "demo_parity_f32_rows": demo["parity"]["k1_launches"],
@@ -2499,13 +3121,14 @@ def main(seed: int = 0) -> int:
             "data_windows_serving_bf16_rows": sum(data["serving"]["k1_launches"].values()),
             "train_packed": sum(train["packed"]["k1_launches"].values()) + sum(train["resume"]["k1_launches"].values()),
             "train_rendered": sum(train["rendered"]["k1_launches"].values()),
+            **parallel["k1_launches_by_path"],
         },
         "max_abs_err": max(
             k["max_abs_err"], n768["max_abs_err"], n768["n1024_max_abs_err"],
             n768["bf16_rows_f32_bf16_views_max_abs_err"],
             *(v["max_abs_err"] if isinstance(v, dict) else v for v in protocol["k1"].values()),
             *(v["max_abs_err"] for v in data["k1"].values()),
-            train["k1"]["max_abs_err"],
+            train["k1"]["max_abs_err"], parallel["k1_n384"]["max_abs_err"],
         ),
         "tolerance": K1_TOL,
         "checked": "every row-weight mode (f32, bf16, int8 on uint8 views), every dtype, cases "
@@ -2519,6 +3142,7 @@ def main(seed: int = 0) -> int:
         "n4_full_frame": dict(data["k1"]["n4_full_frame"], shape="N=4 P=305,280 f32 480x636: pack_sample_data's rectify, 4 whole frames"),
         "n16_windows": dict(data["k1"]["n16_windows"], shape="N=16 P=9,216 f32 480x636 views: a packed window's homography warp (8 frames x 2 views)"),
         "n128_rendered": dict(train["k1"], shape="N=128 P=9,216 uint8 480x636 mesh frames: a rendered training chunk (16 windows x 2 frames x 4 slots)"),
+        "n384": dict(parallel["k1_n384"], shape="N=384 P=9,216 uint8 512x640 (valid 480x636): a rank's chunk of the lockstep sharded over 2 ranks (12 recordings x 8 frames x 4 slots)"),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -2529,4 +3153,6 @@ def main(seed: int = 0) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:  # one rank of spawn_world
+        sys.exit(_rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

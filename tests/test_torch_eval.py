@@ -29,6 +29,7 @@ from absolutetrack_tpu_torch.models.config import ModelConfig
 from absolutetrack_tpu_torch.models.params import load_jax_params
 from absolutetrack_tpu_torch.models.umetrack import UmeTrackModel
 from absolutetrack_tpu_torch.ops import warp_kernel
+from absolutetrack_tpu_torch.parallel import Mesh, make_mesh
 from absolutetrack_tpu_torch.tracker import video_data
 from test_torch_batched import JCFG, twin_params
 
@@ -176,9 +177,20 @@ def test_pad_frames():
 
 
 def test_unported_options_raise(recordings, twin):
+    """A mesh needs a process group of its size (``tests/test_torch_parallel.py``
+    runs such worlds); the recordings must split over its data axis; a
+    1 x 1 mesh tracks as no mesh does."""
     _, model = twin
-    with pytest.raises(NotImplementedError, match="mesh"):
-        eval_lib.track_recordings_batched(model, [(recordings[0][1], recordings[0][2])], mesh=object())
+    with pytest.raises(RuntimeError, match="torchrun"):
+        make_mesh(data=2, devices="cpu")
+    one = [(recordings[0][1], recordings[0][2])]
+    with pytest.raises(ValueError, match="do not split over a data axis of 2"):
+        eval_lib.track_recordings_batched(model, one, mesh=Mesh(2, 1, 0, torch.device("cpu")))
+    (meshed,) = eval_lib.track_recordings_batched(model, one, max_frames=2, mesh=make_mesh(devices="cpu"))
+    (plain,) = eval_lib.track_recordings_batched(model, one, max_frames=2)
+    for name, value in vars(plain).items():
+        if value is not None:
+            np.testing.assert_array_equal(getattr(meshed, name), value, err_msg=name)
     # a checkpoint is read now (tests/test_torch_checkpoint.py); a missing one is an error
     with pytest.raises(FileNotFoundError):
         eval_lib.build_model("weights.pt", CFG, device="cpu")

@@ -357,14 +357,17 @@ def test_main_at_full_width_on_the_cpu(tree, checkpoint):
 
 
 def test_main_options(tree, tmp_path):
-    """Rank 1 of 2 takes every other window; ``--mesh-data 2`` raises until
-    sharding is ported; an empty root exits with a hint; the card is the
-    default device."""
+    """Rank 1 of 2 takes every other window; ``--mesh-data 2`` needs
+    ``--batch-windows`` divisible by it and a world of 2 ranks (launched by
+    torchrun; ``tests/test_torch_parallel.py`` runs one); an empty root
+    exits with a hint; the card is the default device."""
     argv = ["--data-root", str(tree["port"]), "--torch-device", "cpu", "--limit", "0"]
     (errors, _), lines = _main(argv + ["--rank", "1", "--world-size", "2"])
     assert lines == ["[rank 1] 4 windows from 4 folders"] and errors.size == 0
-    with pytest.raises(NotImplementedError, match="mesh-data"):
+    with pytest.raises(ValueError, match="--batch-windows % --mesh-data"):
         infer.main(argv + ["--mesh-data", "2"])
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
+        infer.main(argv + ["--mesh-data", "2", "--batch-windows", "2"])
     with pytest.raises(SystemExit, match="pack_sample_data"):
         infer.main(["--data-root", str(tmp_path), "--torch-device", "cpu"])
 

@@ -264,8 +264,9 @@ def test_cli_skips_existing_results_and_refuses_a_mesh(tree):
             known.main(argv)
         assert ("skip testing/user00/recording_00 (exists)" in buf.getvalue()) == expect_skip
     assert chip_smoke.read_results(out)["testing/user00/recording_00.npy"]["valid_tracking"].shape == (2, 2)
+    # --mesh-data 2 needs a world of 2 ranks (torchrun; tests/test_torch_parallel.py runs one)
     for module, extra in ((known, []), (unknown, ["--generic-hand-model", tree["generic"]])):
-        with pytest.raises(NotImplementedError, match="mesh-data"):
+        with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
             module.main(argv + extra + ["--mesh-data", "2", "--override"])
 
 

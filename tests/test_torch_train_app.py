@@ -254,15 +254,19 @@ def test_rendered_mode_on_the_cpu(tmp_path, monkeypatch):
 
 
 def test_cli_refuses_several_cards_and_defaults_to_the_card(files, monkeypatch):
-    argv = ["--synthetic", "--tiny-arch", "--steps", "1", "--generic-hand-model", files["generic"]]
-    with pytest.raises(NotImplementedError, match="model-axis"):
-        app.main(argv + ["--model-axis", "2", "--torch-device", "cpu"])
+    """One process takes one card: several visible cards raise with how to
+    launch one rank per card; ``--model-axis 2`` at a world of 1 trains
+    unsharded, as JAX's trainer takes a model axis only where it divides
+    its devices (``tests/test_torch_parallel.py`` runs it at a world of 2)."""
+    argv = ["--synthetic", "--tiny-arch", "--steps", "1", "--generic-hand-model", files["generic"], "--save", ""]
+    res = app.main(argv + ["--model-axis", "2", "--torch-device", "cpu"])
+    assert len(res["metrics"]) == 1 and int(res["state"].step) == 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         app.main(argv)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="several cards"):
+    with pytest.raises(RuntimeError, match="one rank per card: `torchrun --nproc-per-node 2"):
         app.main(argv)
 
 

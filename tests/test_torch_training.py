@@ -69,6 +69,7 @@ from absolutetrack_tpu_torch.models.params import (
     load_jax_train_state,
 )
 from absolutetrack_tpu_torch.models.regressor import RegressorOutput
+from absolutetrack_tpu_torch.parallel import make_mesh as make_port_mesh
 from absolutetrack_tpu_torch.tracker import video_data as vd
 from absolutetrack_tpu_torch.training import loss, optimizer, rendered, synthetic, train
 
@@ -477,10 +478,15 @@ def test_train_step_matches_jax(jparams, jax_step):
 
 
 def test_train_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """The steps take a ``parallel.Mesh`` and nothing else; a mesh of
+    several ranks needs their process group (``tests/test_torch_parallel.py``
+    runs the steps in such worlds)."""
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         train.make_train_step(CFG, train.make_optimizer(), mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         train.make_eval_step(CFG, mesh=object())
+    with pytest.raises(RuntimeError, match="torchrun"):
+        make_port_mesh(data=1, model=2, devices="cpu")
 
 
 def test_eval_step_matches_jax(jparams):
