@@ -43,6 +43,7 @@ from ..tracker.video_data import (  # noqa: F401  (gt_landmark_sequence: re-expo
     gt_landmark_sequence,
     make_frame_source,
 )
+from ..utils import profiling
 
 NUM_HANDS = 2
 NUM_LANDMARKS = 21
@@ -244,6 +245,10 @@ def track_recordings_batched(
     card recording-major, ``(R, chunk, V, H, W)`` uint8. ``stage_hook``, if
     given, is called with each stage's name as it ends (assemble, upload,
     the stages of ``track_chunk_eval_batched``, fk), for a caller's timing.
+    Under a profiler each chunk is an ``eval.chunk`` span with a span
+    ``eval.<stage>`` a stage (``utils/profiling.py``; the upload counts
+    its bytes), and the copies back to the host after the last chunk are
+    one ``eval.readback`` span.
 
     With ``mesh`` (a ``parallel.Mesh``) R must divide by its 'data' size
     n: each rank tracks the contiguous block of R / n recordings of its
@@ -329,74 +334,78 @@ def track_recordings_batched(
     t = 0
     while t < t_total:
         n = min(chunk_size, t_total - t)
-        # up to n live frames per recording; recordings past their end
-        # repeat their last frame with zero confidence (masked out)
-        imgs = []  # per recording (chunk_size, V, H, W)
-        live_counts = np.zeros(r, np.int64)
-        for ri in range(r):
-            rec_frames = []
-            for ti in range(n):
-                if t + ti < lengths[ri]:
-                    try:
-                        last_frames[ri] = np.asarray(next(frame_iters[ri]))
-                        rec_frames.append(last_frames[ri])
-                        continue
-                    except StopIteration:
-                        lengths[ri] = min(lengths[ri], t + ti)
-                break
-            live_counts[ri] = len(rec_frames)
-            if last_frames[ri] is None:
-                if zeros_like_first is None:
-                    # only when a recording yields no frame: the frame shape
-                    # comes from the rig
-                    cam0 = labels_list[ri].cameras
-                    zeros_like_first = np.zeros(
-                        (v, int(cam0.height.reshape(-1)[0]), int(cam0.width.reshape(-1)[0])),
-                        np.float32,
+        with profiling.span("eval.chunk"):
+            with profiling.span("eval.assemble"):
+                # up to n live frames per recording; recordings past their end
+                # repeat their last frame with zero confidence (masked out)
+                imgs = []  # per recording (chunk_size, V, H, W)
+                live_counts = np.zeros(r, np.int64)
+                for ri in range(r):
+                    rec_frames = []
+                    for ti in range(n):
+                        if t + ti < lengths[ri]:
+                            try:
+                                last_frames[ri] = np.asarray(next(frame_iters[ri]))
+                                rec_frames.append(last_frames[ri])
+                                continue
+                            except StopIteration:
+                                lengths[ri] = min(lengths[ri], t + ti)
+                        break
+                    live_counts[ri] = len(rec_frames)
+                    if last_frames[ri] is None:
+                        if zeros_like_first is None:
+                            # only when a recording yields no frame: the frame shape
+                            # comes from the rig
+                            cam0 = labels_list[ri].cameras
+                            zeros_like_first = np.zeros(
+                                (v, int(cam0.height.reshape(-1)[0]), int(cam0.width.reshape(-1)[0])),
+                                np.float32,
+                            )
+                        last_frames[ri] = zeros_like_first
+                    rec_frames.extend([last_frames[ri]] * (chunk_size - len(rec_frames)))
+                    imgs.append(np.stack(rec_frames))
+                stacked = np.stack(imgs)  # (R, chunk, V, H, W)
+                images_c = _pad_frames(stacked if pipelined else np.moveaxis(stacked, 0, 1), pad_hw)
+
+                # label arrays by fancy indexing, time-major (chunk, R, ...)
+                ts = t + np.arange(chunk_size)
+
+                def per_rec(field):
+                    return np.stack(
+                        [getattr(lab, field)[np.minimum(ts, len(lab) - 1)] for lab in labels_list], axis=1
                     )
-                last_frames[ri] = zeros_like_first
-            rec_frames.extend([last_frames[ri]] * (chunk_size - len(rec_frames)))
-            imgs.append(np.stack(rec_frames))
-        stacked = np.stack(imgs)  # (R, chunk, V, H, W)
-        images_c = _pad_frames(stacked if pipelined else np.moveaxis(stacked, 0, 1), pad_hw)
 
-        # label arrays by fancy indexing, time-major (chunk, R, ...)
-        ts = t + np.arange(chunk_size)
+                live = ts[:, None] < (t + live_counts)[None, :]  # (chunk, R)
+                conf_c = (per_rec("hand_confidences") * live[..., None]).astype(np.float32)
+            mark("assemble")
 
-        def per_rec(field):
-            return np.stack(
-                [getattr(lab, field)[np.minimum(ts, len(lab) - 1)] for lab in labels_list], axis=1
-            )
-
-        live = ts[:, None] < (t + live_counts)[None, :]  # (chunk, R)
-        conf_c = (per_rec("hand_confidences") * live[..., None]).astype(np.float32)
-        mark("assemble")
-
-        images_dev = torch.as_tensor(images_c, device=dev)
-        cam_c, ja_c, wr_c, conf_dev = (
-            torch.as_tensor(a, device=dev)
-            for a in (per_rec("camera_to_world"), per_rec("joint_angles"), per_rec("wrist_transforms"), conf_c)
-        )
-        mark("upload")
-        with torch.no_grad():
-            state, res = run_chunk(state, images_dev, cam_c, ja_c, wr_c, conf_dev)
-            pending.append((
-                t, n, res,
-                landmarks_from_hand_pose(hand_fk, res.joint_angles, res.wrist_xfs, hand_idx),
-                landmarks_from_hand_pose(gt_hand_fk, ja_c, wr_c, hand_idx),
-            ))
-        mark("fk")
+            with profiling.span("eval.upload", dev) as upload:
+                host = (images_c, per_rec("camera_to_world"), per_rec("joint_angles"), per_rec("wrist_transforms"),
+                        conf_c)
+                images_dev, cam_c, ja_c, wr_c, conf_dev = (torch.as_tensor(a, device=dev) for a in host)
+                upload.count("bytes", sum(a.nbytes for a in host))
+            mark("upload")
+            with torch.no_grad():
+                state, res = run_chunk(state, images_dev, cam_c, ja_c, wr_c, conf_dev)
+                with profiling.span("eval.fk", dev):
+                    pending.append((
+                        t, n, res,
+                        landmarks_from_hand_pose(hand_fk, res.joint_angles, res.wrist_xfs, hand_idx),
+                        landmarks_from_hand_pose(gt_hand_fk, ja_c, wr_c, hand_idx),
+                    ))
+            mark("fk")
         t += n
 
-    for t0, n, res, tk, gk in pending:
-        sl = slice(t0, t0 + n)
-        valid[:, :, sl] = _frames_to_axis(res.hand_valid, n, 2)
-        tracked[:, :, sl] = _frames_to_axis(tk, n, 2)
-        gt[:, :, sl] = _frames_to_axis(gk, n, 2)
-        if res.predicted_scales is not None:
-            scales[:, :, sl] = _frames_to_axis(res.predicted_scales, n, 2)
-        raw_angles[:, :, sl] = _frames_to_axis(res.joint_angles, n, 2)
-        raw_wrists[:, :, sl] = _frames_to_axis(res.wrist_xfs, n, 2)
+    with profiling.span("eval.readback", dev):
+        for t0, n, res, tk, gk in pending:
+            sl = slice(t0, t0 + n)
+            valid[:, :, sl] = _frames_to_axis(res.hand_valid, n, 2)
+            tracked[:, :, sl] = _frames_to_axis(tk, n, 2)
+            gt[:, :, sl] = _frames_to_axis(gk, n, 2)
+            if res.predicted_scales is not None:
+                scales[:, :, sl] = _frames_to_axis(res.predicted_scales, n, 2)
+            raw_angles[:, :, sl] = _frames_to_axis(res.joint_angles, n, 2)
+            raw_wrists[:, :, sl] = _frames_to_axis(res.wrist_xfs, n, 2)
 
     return [
         SequenceResult(

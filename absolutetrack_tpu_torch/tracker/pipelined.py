@@ -17,6 +17,7 @@ import torch
 from ..geometry import camera as cam
 from ..kinematics.hand_model import HandModel
 from ..models.umetrack import UmeTrackModel
+from ..utils import profiling
 from .batched import BatchedTracker
 from .crop_gen import CropSlots
 from .tracker import NUM_HANDS, TrackerConfig, TrackerState, TrackFrameResult
@@ -49,7 +50,9 @@ def track_chunk_eval_batched(
     (flat index = recording * F + frame); phase B steps the frames with the
     R*NUM_HANDS memory slots as the carry. ``stage_hook``, if given, is
     called with each stage's name as the stage ends (crop_slots,
-    warp_and_inputs, trunk, scan_tail), for a caller's timing.
+    warp_and_inputs, trunk, scan_tail), for a caller's timing; under a
+    profiler each stage is also an ``eval.<stage>`` span
+    (``utils/profiling.py``).
     """
     mark = stage_hook or (lambda name: None)
     if images_rec_major:
@@ -64,58 +67,63 @@ def track_chunk_eval_batched(
     def rep(x):  # (R, ...) -> (R*F, ...), recording-major repeat
         return x.unsqueeze(1).expand((r, f) + x.shape[1:]).reshape((r * f,) + x.shape[1:])
 
+    dev = model.device
     cams_fr = cameras.map(rep)._replace(T_world_from_eye=flat(camera_to_world_seq))
-    slots = bt._gen_slots(
-        cams_fr,
-        rep(camera_angles),
-        hand_models_mm.map(rep),
-        flat(joint_angles_seq),
-        flat(wrist_mm_seq),
-        flat(confidences_seq),
-        2 if calibrate_scale else min_num_crops,
-        src_kind,
-    )
+    with profiling.span("eval.crop_slots", dev):
+        slots = bt._gen_slots(
+            cams_fr,
+            rep(camera_angles),
+            hand_models_mm.map(rep),
+            flat(joint_angles_seq),
+            flat(wrist_mm_seq),
+            flat(confidences_seq),
+            2 if calibrate_scale else min_num_crops,
+            src_kind,
+        )
     mark("crop_slots")
-    # use_memory of phase A's inputs is a placeholder: phase B sets it per frame
-    dummy = bt.init_state(r * f)
-    images_flat = (
-        images_seq.reshape((r * f,) + images_seq.shape[2:]) if images_rec_major else flat(images_seq)
-    )
-    frame_all = bt.make_inputs(dummy, images_flat, cams_fr, slots, src_kind)
+    with profiling.span("eval.warp_and_inputs", dev):
+        # use_memory of phase A's inputs is a placeholder: phase B sets it per frame
+        dummy = bt.init_state(r * f)
+        images_flat = (
+            images_seq.reshape((r * f,) + images_seq.shape[2:]) if images_rec_major else flat(images_seq)
+        )
+        frame_all = bt.make_inputs(dummy, images_flat, cams_fr, slots, src_kind)
     mark("warp_and_inputs")
-    feats_all = model.extract_features(frame_all)  # (R*F*2, h, w, C)
-    skel_all = None
-    if not calibrate_scale:
-        skel_all = model.encode_skeleton(bt._skeleton_inputs(hand_models_mm), r * NUM_HANDS)
+    with profiling.span("eval.trunk", dev):
+        feats_all = model.extract_features(frame_all)  # (R*F*2, h, w, C)
+        skel_all = None
+        if not calibrate_scale:
+            skel_all = model.encode_skeleton(bt._skeleton_inputs(hand_models_mm), r * NUM_HANDS)
     mark("trunk")
 
     def at(x, t):  # frame t, time-major for the tail: (R*F*2, ...) -> (R*2, ...), (R*F, 2, ...) -> (R, 2, ...)
         return x.unflatten(0, (r, f, -1))[:, t].flatten(0, 1)
 
     outs = []
-    for t in range(f):
-        slots_t = CropSlots(
-            view_idx=None, cameras=None,
-            view_valid=at(slots.view_valid, t), hand_valid=at(slots.hand_valid, t),
-        )
-        hand_valid = slots_t.hand_valid.reshape(-1)  # (R*2,)
-        if opts.enable_memory:
-            use_memory = state.valid_history.reshape(-1) & hand_valid
-        else:
-            use_memory = torch.zeros_like(hand_valid)
-        # the tail reads neither the crops nor the intrinsics
-        frame_t = frame_all._replace(
-            left_images=None,
-            intrinsics=None,
-            extrinsics=at(frame_all.extrinsics, t),
-            view_mask=at(frame_all.view_mask, t),
-            hand_idx=at(frame_all.hand_idx, t),
-            use_memory=use_memory,
-            sample_mask=hand_valid,
-        )
-        new_t, out = model.regress_from_features(state.temporal, frame_t, at(feats_all, t), skel_all)
-        state, res = bt._finish(state, new_t, slots_t, out)
-        outs.append(res)
+    with profiling.span("eval.scan_tail", dev):
+        for t in range(f):
+            slots_t = CropSlots(
+                view_idx=None, cameras=None,
+                view_valid=at(slots.view_valid, t), hand_valid=at(slots.hand_valid, t),
+            )
+            hand_valid = slots_t.hand_valid.reshape(-1)  # (R*2,)
+            if opts.enable_memory:
+                use_memory = state.valid_history.reshape(-1) & hand_valid
+            else:
+                use_memory = torch.zeros_like(hand_valid)
+            # the tail reads neither the crops nor the intrinsics
+            frame_t = frame_all._replace(
+                left_images=None,
+                intrinsics=None,
+                extrinsics=at(frame_all.extrinsics, t),
+                view_mask=at(frame_all.view_mask, t),
+                hand_idx=at(frame_all.hand_idx, t),
+                use_memory=use_memory,
+                sample_mask=hand_valid,
+            )
+            new_t, out = model.regress_from_features(state.temporal, frame_t, at(feats_all, t), skel_all)
+            state, res = bt._finish(state, new_t, slots_t, out)
+            outs.append(res)
     mark("scan_tail")
     return state, stack_results(outs)
 

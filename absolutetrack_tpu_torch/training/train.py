@@ -28,6 +28,7 @@ from ..models.config import ModelConfig
 from ..models.regressor import RegressorOutput
 from ..models.umetrack import FrameInputs, SkeletonInputs, UmeTrackModel
 from ..parallel.mesh import Mesh, shard_block
+from ..utils import profiling
 from .loss import LossWeights, distance, sequence_loss
 from .optimizer import ClippedAdamW, GuardState, apply_updates
 
@@ -259,8 +260,10 @@ def loss_and_grads(
     params = dict(model.named_parameters())
     mask_total = _sum_over_data(mesh, batch.sample_mask.to(torch.float32).sum()) if _sharded(mesh) else None
     with torch.enable_grad():
-        loss, metrics = loss_fn(model, batch, hand_model_m, cfg, branch, weights, mask_total, _view_shard(mesh))
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        with profiling.span("train.forward", model.device):
+            loss, metrics = loss_fn(model, batch, hand_model_m, cfg, branch, weights, mask_total, _view_shard(mesh))
+        with profiling.span("train.backward", model.device):
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(params.items(), grads)}
     metrics = {k: v.detach() for k, v in metrics.items()}
     if not _sharded(mesh):
@@ -298,15 +301,20 @@ def make_train_step(
     the same model. Metrics are 0-d tensors on the device. Under a
     ``mesh`` each rank passes its block of the batch (``local_batch``);
     the gradients and metrics are the whole batch's (``loss_and_grads``),
-    so the clipped optimizer decides alike on every rank."""
+    so the clipped optimizer decides alike on every rank. Under a profiler
+    the step is a ``train.step`` span around ``loss_and_grads``'s
+    ``train.forward`` and ``train.backward`` and its own
+    ``train.optimizer`` (``utils/profiling.py``)."""
     _check_mesh(mesh)
 
     def train_step(state: TrainState, batch: SequenceBatch, hand_model_m: HandModel):
         model = state.params.requires_grad_(True)  # the port's models are built without gradients
-        _, metrics, grads = loss_and_grads(model, batch, hand_model_m, cfg, branch, weights, mesh)
-        params = dict(model.named_parameters())
-        updates, opt_state = optimizer.update(grads, state.opt_state, params)
-        apply_updates(params, updates)
+        with profiling.span("train.step", model.device):
+            _, metrics, grads = loss_and_grads(model, batch, hand_model_m, cfg, branch, weights, mesh)
+            params = dict(model.named_parameters())
+            with profiling.span("train.optimizer", model.device):
+                updates, opt_state = optimizer.update(grads, state.opt_state, params)
+                apply_updates(params, updates)
         return TrainState(model, opt_state, state.step + 1), metrics
 
     return train_step
