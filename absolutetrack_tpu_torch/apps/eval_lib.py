@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import os
+import time
 from typing import Iterable, List, Optional
 
 import numpy as np
@@ -87,22 +88,116 @@ def _prepad_opts(opts: TrackerConfig, labels: HandPoseLabels):
     return dataclasses.replace(opts, src_valid_hw=(h, w)), (hp, wp)
 
 
+def _check_extent(h: int, w: int, pad_hw) -> None:
+    if h > pad_hw[0] or w > pad_hw[1]:
+        # a silent truncation to the label cameras' extent would sample a
+        # cropped region
+        raise ValueError(
+            f"frame dims ({h}, {w}) exceed the label cameras' padded "
+            f"extent {tuple(pad_hw)}; frames and labels disagree"
+        )
+
+
 def _pad_frames(images: np.ndarray, pad_hw) -> np.ndarray:
     """(..., H, W) -> (..., hp, wp) zero-padded (contiguous as it is when pad_hw is None)."""
     if pad_hw is None:
         return np.ascontiguousarray(images)
     hp, wp = pad_hw
     h, w = images.shape[-2:]
-    if h > hp or w > wp:
-        # a silent truncation to the label cameras' extent would sample a
-        # cropped region
-        raise ValueError(
-            f"frame dims ({h}, {w}) exceed the label cameras' padded "
-            f"extent ({hp}, {wp}); frames and labels disagree"
-        )
+    _check_extent(h, w, pad_hw)
     out = np.zeros(images.shape[:-2] + (hp, wp), images.dtype)
     out[..., :h, :w] = images
     return out
+
+
+class _FrameStaging:
+    """The host image of a lockstep chunk's frames, allocated once a call:
+    ``(R, chunk, V, hp, wp)`` recording-major or ``(chunk, R, V, hp, wp)``
+    frame-major, as ``_pad_frames`` lays out the stacked chunk. On a CUDA
+    device it is page-locked and the card copies it without a pageable
+    bounce (torch's caching host allocator keeps the block across calls);
+    elsewhere it is plain host memory. Each frame is copied into it once.
+
+    The first chunk fixes its dtype (what ``np.stack`` gives for that
+    chunk's frames; float32 when no recording yields one) and the frame
+    shape (its first frame's, else ``rig_shape``). A later frame of another
+    shape, or of a dtype that does not cast safely, raises ``ValueError``.
+    The pad margins are zeroed once, at allocation, and no frame reaches
+    them: a cached block comes back with old bytes."""
+
+    def __init__(self, frame_iters: list, chunk_size: int, rec_major: bool, pad_hw, rig_shape, device):
+        self.frame_iters, self.chunk_size, self.rec_major = frame_iters, chunk_size, rec_major
+        self.pad_hw, self.rig_shape = pad_hw, tuple(rig_shape)
+        self.device = torch.device(device)
+        self.pinned = self.device.type == "cuda"
+        self.last: List[Optional[np.ndarray]] = [None] * len(frame_iters)
+        self.buf = self.host = self.zeros = self.frame_shape = None
+        self.copied = None  # the CUDA event recorded after the last upload
+
+    def fill(self, t: int, n: int, lengths: List[int]):
+        """Stage frames ``t .. t + n - 1``: up to ``n`` live frames a
+        recording (its ``lengths`` bound it; a source that ends sooner cuts
+        its entry there), then its last frame repeated, or zeros where it has
+        yielded none. Returns the live counts and the µs the host waited for
+        the previous chunk's copy to leave the buffer."""
+        got = []
+        for ri, frames in enumerate(self.frame_iters):
+            rec = []
+            for ti in range(min(n, lengths[ri] - t)):
+                try:
+                    rec.append(np.asarray(next(frames)))
+                except StopIteration:
+                    lengths[ri] = t + ti
+                    break
+            got.append(rec)
+        if self.buf is None:
+            self._allocate([f for rec in got for f in rec])
+        waited_us = 0
+        if self.copied is not None:
+            t0 = time.perf_counter_ns()
+            self.copied.synchronize()
+            waited_us = (time.perf_counter_ns() - t0) // 1000
+        for ri, rec in enumerate(got):
+            if rec:
+                self.last[ri] = rec[-1]
+            elif self.last[ri] is None:
+                if self.zeros is None:
+                    self.zeros = np.zeros(self.frame_shape, self.host.dtype)
+                self.last[ri] = self.zeros
+            for ti in range(self.chunk_size):
+                self._put(ri, ti, rec[ti] if ti < len(rec) else self.last[ri])
+        return np.array([len(rec) for rec in got], np.int64), waited_us
+
+    def _allocate(self, frames: List[np.ndarray]) -> None:
+        dtype = np.result_type(*{f.dtype for f in frames}) if frames else np.dtype(np.float32)
+        self.frame_shape = frames[0].shape if frames else self.rig_shape
+        h, w = self.frame_shape[-2:]
+        hp, wp = self.pad_hw or (h, w)
+        _check_extent(h, w, (hp, wp))
+        r = len(self.frame_iters)
+        lead = (r, self.chunk_size) if self.rec_major else (self.chunk_size, r)
+        self.buf = torch.empty(lead + self.frame_shape[:-2] + (hp, wp),
+                               dtype=torch.from_numpy(np.empty(0, dtype)).dtype, pin_memory=self.pinned)
+        self.host = self.buf.numpy()
+        self.host[..., h:, :] = 0
+        self.host[..., :h, w:] = 0
+
+    def _put(self, ri: int, ti: int, frame: np.ndarray) -> None:
+        if not np.can_cast(frame.dtype, self.host.dtype, "safe"):
+            raise ValueError(f"a frame of {frame.dtype} does not cast safely to the chunk's {self.host.dtype} "
+                             "(the first chunk's frames set it)")
+        if frame.shape != self.frame_shape:
+            raise ValueError(f"a frame of shape {frame.shape} differs from the first frame's {self.frame_shape}")
+        h, w = self.frame_shape[-2:]
+        np.copyto(self.host[(ri, ti) if self.rec_major else (ti, ri)][..., :h, :w], frame)
+
+    def upload(self) -> torch.Tensor:
+        """The staged chunk on the device; it never aliases the buffer."""
+        images = self.buf.to(self.device, non_blocking=self.pinned, copy=True)
+        if self.pinned:
+            self.copied = torch.cuda.Event()
+            self.copied.record(torch.cuda.current_stream(self.device))
+        return images
 
 
 def _frames_to_axis(x: torch.Tensor, n: int, axis: int) -> np.ndarray:
@@ -241,14 +336,19 @@ def track_recordings_batched(
     its own cameras, hand model, temporal memory and validity history.
     Shorter recordings pad with zero-confidence frames (their hand slots go
     invalid; results are trimmed on return). All recordings share the view
-    count, image size and camera kind. Each chunk's frames arrive on the
-    card recording-major, ``(R, chunk, V, H, W)`` uint8. ``stage_hook``, if
+    count, image size and camera kind. Each chunk's frames are copied once
+    into one staging buffer a call (``_FrameStaging``: page-locked on a
+    CUDA device, zero-padded) and arrive on the card recording-major,
+    ``(R, chunk, V, H, W)`` in the frames' dtype. ``stage_hook``, if
     given, is called with each stage's name as it ends (assemble, upload,
     the stages of ``track_chunk_eval_batched``, fk), for a caller's timing.
     Under a profiler each chunk is an ``eval.chunk`` span with a span
     ``eval.<stage>`` a stage (``utils/profiling.py``; the upload counts
     its bytes), and the copies back to the host after the last chunk are
-    one ``eval.readback`` span.
+    one ``eval.readback`` span. ``eval.assemble`` counts
+    ``staging_wait_us``, the host's wait for the previous chunk's copy out
+    of the buffer; ``eval.upload`` counts ``bytes`` (frames and label
+    arrays) and ``pinned_bytes``, those copied from page-locked staging.
 
     With ``mesh`` (a ``parallel.Mesh``) R must divide by its 'data' size
     n: each rank tracks the contiguous block of R / n recordings of its
@@ -325,47 +425,22 @@ def track_recordings_batched(
     hand_idx = torch.arange(NUM_HANDS, device=dev).expand(r, NUM_HANDS)
 
     state = tracker.init_state(r)
-    frame_iters = [iter(frames) for _, frames in recordings]
-    last_frames = [None] * r
-    zeros_like_first = None
-    v = labels_list[0].num_views
+    cam0 = labels_list[0].cameras
+    staging = _FrameStaging(
+        [iter(frames) for _, frames in recordings], chunk_size, pipelined, pad_hw,
+        (labels_list[0].num_views, int(cam0.height.reshape(-1)[0]), int(cam0.width.reshape(-1)[0])), dev,
+    )
     pending = []  # (t_start, n, res, tracked landmarks, gt landmarks) on the device
 
     t = 0
     while t < t_total:
         n = min(chunk_size, t_total - t)
         with profiling.span("eval.chunk"):
-            with profiling.span("eval.assemble"):
+            with profiling.span("eval.assemble") as assemble:
                 # up to n live frames per recording; recordings past their end
                 # repeat their last frame with zero confidence (masked out)
-                imgs = []  # per recording (chunk_size, V, H, W)
-                live_counts = np.zeros(r, np.int64)
-                for ri in range(r):
-                    rec_frames = []
-                    for ti in range(n):
-                        if t + ti < lengths[ri]:
-                            try:
-                                last_frames[ri] = np.asarray(next(frame_iters[ri]))
-                                rec_frames.append(last_frames[ri])
-                                continue
-                            except StopIteration:
-                                lengths[ri] = min(lengths[ri], t + ti)
-                        break
-                    live_counts[ri] = len(rec_frames)
-                    if last_frames[ri] is None:
-                        if zeros_like_first is None:
-                            # only when a recording yields no frame: the frame shape
-                            # comes from the rig
-                            cam0 = labels_list[ri].cameras
-                            zeros_like_first = np.zeros(
-                                (v, int(cam0.height.reshape(-1)[0]), int(cam0.width.reshape(-1)[0])),
-                                np.float32,
-                            )
-                        last_frames[ri] = zeros_like_first
-                    rec_frames.extend([last_frames[ri]] * (chunk_size - len(rec_frames)))
-                    imgs.append(np.stack(rec_frames))
-                stacked = np.stack(imgs)  # (R, chunk, V, H, W)
-                images_c = _pad_frames(stacked if pipelined else np.moveaxis(stacked, 0, 1), pad_hw)
+                live_counts, waited_us = staging.fill(t, n, lengths)
+                assemble.count("staging_wait_us", waited_us)
 
                 # label arrays by fancy indexing, time-major (chunk, R, ...)
                 ts = t + np.arange(chunk_size)
@@ -380,10 +455,11 @@ def track_recordings_batched(
             mark("assemble")
 
             with profiling.span("eval.upload", dev) as upload:
-                host = (images_c, per_rec("camera_to_world"), per_rec("joint_angles"), per_rec("wrist_transforms"),
-                        conf_c)
-                images_dev, cam_c, ja_c, wr_c, conf_dev = (torch.as_tensor(a, device=dev) for a in host)
-                upload.count("bytes", sum(a.nbytes for a in host))
+                images_dev = staging.upload()
+                host = (per_rec("camera_to_world"), per_rec("joint_angles"), per_rec("wrist_transforms"), conf_c)
+                cam_c, ja_c, wr_c, conf_dev = (torch.as_tensor(a, device=dev) for a in host)
+                upload.count("bytes", staging.buf.nbytes + sum(a.nbytes for a in host))
+                upload.count("pinned_bytes", staging.buf.nbytes if staging.pinned else 0)
             mark("upload")
             with torch.no_grad():
                 state, res = run_chunk(state, images_dev, cam_c, ja_c, wr_c, conf_dev)

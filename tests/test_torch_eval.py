@@ -176,6 +176,77 @@ def test_pad_frames():
         eval_lib._pad_frames(np.ones((2, 9, 6), np.uint8), (8, 8))
 
 
+def _dirty_empty(monkeypatch):
+    """``torch.empty`` handing out blocks of 0xFF bytes, as a cached host
+    block comes back with an earlier call's bytes."""
+    real = torch.empty
+
+    def empty(*a, **kw):
+        out = real(*a, **kw)
+        out.view(torch.uint8).fill_(255)
+        return out
+
+    monkeypatch.setattr(torch, "empty", empty)
+
+
+@pytest.mark.parametrize("pipelined", [True, False])
+@pytest.mark.parametrize("dtype,pad_hw", [(np.uint8, (8, 8)), (np.float32, (8, 8)), (np.uint8, None)])
+def test_frame_staging_equals_the_stacked_padded_chunk(monkeypatch, pipelined, dtype, pad_hw):
+    """Each staged chunk is ``_pad_frames(np.stack(...))`` of the chunk's
+    frames bit for bit, in either layout, from a buffer whose bytes were
+    0xFF: recordings of 5 and 3 frames (last-frame repeats), one that
+    yields no frame (zeros of the frames' dtype), one whose source ends
+    after 3 of its 4 labelled frames. The upload is a copy, not a view."""
+    _dirty_empty(monkeypatch)
+    rng = np.random.default_rng(0)
+    shape = (2, 5, 6) if pad_hw else (2, 8, 8)
+    sources = [rng.integers(1, 255, (k,) + shape).astype(dtype) for k in (5, 3, 0, 3)]
+    lengths, chunk = [5, 3, 5, 4], 2
+    staging = eval_lib._FrameStaging([iter(s) for s in sources], chunk, pipelined, pad_hw, shape, "cpu")
+    last = [None] * len(sources)
+    uploaded = None
+    for t in range(0, 5, chunk):
+        n = min(chunk, 5 - t)
+        live, waited = staging.fill(t, n, lengths)
+        if uploaded is not None:
+            np.testing.assert_array_equal(uploaded.numpy(), expect)  # the last chunk's upload kept its frames
+        recs = []
+        for ri, src in enumerate(sources):
+            frames = list(src[t : min(t + n, lengths[ri], len(src))])
+            assert live[ri] == len(frames)
+            if frames:
+                last[ri] = frames[-1]
+            elif last[ri] is None:
+                last[ri] = np.zeros(shape, dtype)
+            recs.append(np.stack(frames + [last[ri]] * (chunk - len(frames))))
+        stacked = np.stack(recs)
+        expect = eval_lib._pad_frames(stacked if pipelined else np.moveaxis(stacked, 0, 1), pad_hw)
+        assert waited == 0 and staging.host.dtype == dtype and staging.host.shape == expect.shape
+        np.testing.assert_array_equal(staging.host, expect)
+        uploaded = staging.upload()
+        assert uploaded.data_ptr() != staging.buf.data_ptr() and not staging.pinned
+    assert lengths == [5, 3, 0, 3]  # the sources that ended sooner cut their lengths
+
+
+def test_frame_staging_refuses_what_it_cannot_stage():
+    """A frame that does not cast safely to the first chunk's dtype, or of
+    another shape than the first frame's, raises; so does a frame larger
+    than the padded extent."""
+    def staged(chunks, pad_hw=(8, 8)):
+        staging = eval_lib._FrameStaging([iter(chunks)], 1, True, pad_hw, (2, 5, 6), "cpu")
+        for t in range(len(chunks)):
+            staging.fill(t, 1, [len(chunks)])
+
+    u8 = np.ones((2, 5, 6), np.uint8)
+    with pytest.raises(ValueError, match="float32 does not cast safely to the chunk's uint8"):
+        staged([u8, u8.astype(np.float32)])
+    with pytest.raises(ValueError, match="differs from the first frame's"):
+        staged([u8, u8[:, :4]])
+    with pytest.raises(ValueError, match="exceed the label cameras"):
+        staged([np.ones((2, 9, 6), np.uint8)])
+    staged([u8.astype(np.float32), u8])  # uint8 casts safely to float32
+
+
 def test_unported_options_raise(recordings, twin):
     """A mesh needs a process group of its size (``tests/test_torch_parallel.py``
     runs such worlds); the recordings must split over its data axis; a

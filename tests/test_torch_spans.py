@@ -149,8 +149,9 @@ def test_eval_pass_spans_follow_the_stage_hook(lockstep):
     assert names(got, None) == ["eval.chunk", "eval.chunk", "eval.readback"]
     frames = 2 * 8 * 4 * 512 * 640  # recordings x chunk x views x the padded frame, uint8
     labels = 8 * 2 * (4 * 16 + 2 * 22 + 2 * 16 + 2) * 4  # camera_to_world, angles, wrists, confidences; f32
-    uploads = [s["counts"]["bytes"] for s in got if s["name"] == "eval.upload"]
-    assert uploads == [frames + labels] * 2
+    uploads = [s["counts"] for s in got if s["name"] == "eval.upload"]
+    assert uploads == [{"bytes": frames + labels, "pinned_bytes": 0}] * 2  # no page-locked staging on the CPU
+    assert [s["counts"] for s in got if s["name"] == "eval.assemble"] == [{"staging_wait_us": 0}] * 2
     assert len(res) == 2 and all(x.valid_tracking.all() for x in res)
 
 
