@@ -69,6 +69,14 @@ def sample(traffic: dict, seed: int):
     return sorted(rng.choice(traffic["recordings"], size=traffic["check_recordings"], replace=False).tolist())
 
 
+def control_precision(cfg: dict) -> dict:
+    """The control's arguments to the reference tracker: one precision step
+    below the configuration's trunk, with bf16 sampler rows. Under a bf16
+    trunk every conv runs in float8 e4m3; under an f32 one the trunk runs
+    in bf16."""
+    return dict(trunk_dtype=torch.bfloat16, bf16_rows=True, fp8=cfg["compute_dtype"] == "bfloat16")
+
+
 def as_result(ref: dict) -> SimpleNamespace:
     """The reference's (F, 2, ...) tensors in the eval driver's hands-major layout."""
     def hm(x):
@@ -129,27 +137,12 @@ class Cell:
                     frames=frames, seconds=elapsed, frame_flops=eval_frame_flops(self.ctx.cfg))
 
     def trace(self) -> dict:
-        """One pass under the profiler, the stages of ``stage_passes`` passes
-        (each stage's end synchronised), and the crop sampler's bytes."""
+        """One pass under the profiler, and the crop sampler's bytes."""
         from absolutetrack_tpu_torch.ops import warp_kernel
 
-        ctx, tr = self.ctx, self.traffic
+        ctx = self.ctx
         with traced(ctx.device) as box:
             self._pass()
-        stages, last = {}, [0.0]
-
-        def hook(name):
-            ctx.sync()
-            now = time.perf_counter()
-            stages[name] = stages.get(name, 0.0) + now - last[0]
-            last[0] = now
-
-        chunks = tr["stage_passes"] * -(-tr["frames"] // tr["chunk"])
-        for _ in range(tr["stage_passes"]):
-            ctx.sync()
-            last[0] = time.perf_counter()
-            self._pass(stage_hook=hook)
-        stage_ms = {k: v / chunks * 1e3 for k, v in stages.items()}
 
         calls = []
         kernel = warp_kernel.K1
@@ -165,7 +158,7 @@ class Cell:
                 self._pass()
             finally:
                 warp_kernel.K1 = kernel
-        return dict(trace=box[0], stage_ms=stage_ms, k1_calls=calls)
+        return dict(trace=box[0], k1_calls=calls)
 
     def release(self):
         del self.model
@@ -173,6 +166,15 @@ class Cell:
             self.undo()
         if self.ctx.device == "cuda":
             torch.cuda.empty_cache()
+
+    def put_control(self):
+        """The control's results in place of the program's for the sampled
+        recordings (probes and the control's test, after set-up)."""
+        ctx, tr = self.ctx, self.traffic
+        params = make_params(ctx.cfg, ctx.seed, ctx.device, **ctx.spec.config["init"])
+        for r in sample(tr, ctx.seed):
+            rec = scn.reference_recording(self.scene, r, tr["frames"], ctx.device)
+            self.results[r] = as_result(ref_tracking.track(ctx.cfg, params, rec, **control_precision(ctx.cfg)))
 
     def check(self):
         """The reference over a seeded sample of the recordings."""

@@ -8,8 +8,9 @@ runs never run them.
 each batch size: step ms, device idle share and peak memory. ``readings``
 runs set-up and the check (no window) on each seed, for the program as
 configured, then for the control (a training cell: the program with TF32
-on, its own lower-precision path; an eval cell: the plain reference with
-every conv in float8 e4m3 in the program's place) and for each named
+on, its own lower-precision path; an eval cell: the plain reference one
+precision step below the configuration's trunk in the program's place,
+``lockstep.control_precision``) and for each named
 fault planted in the program; it prints one JSON line a run.
 """
 
@@ -69,9 +70,6 @@ def sweep(args):
 def readings(args):
     import torch
 
-    from portbench.harness.kinds import lockstep
-    from portbench.reference import tracking
-
     runs = [("sound", s, ()) for s in args.seeds]
     if args.control:
         runs += [("control", s, ()) for s in args.control_seeds]
@@ -86,11 +84,7 @@ def readings(args):
         cell.setup()
         cell.release()
         if what == "control" and kind == "lockstep":
-            params = lockstep.make_params(spec.config["model"], seed, "cuda", **spec.config["init"])
-            for r in lockstep.sample(spec.traffic, seed):
-                rec = lockstep.scn.reference_recording(cell.scene, r, spec.traffic["frames"], "cuda")
-                cell.results[r] = lockstep.as_result(
-                    tracking.track(spec.config["model"], params, rec, torch.bfloat16, True, fp8=True))
+            cell.put_control()
         checks = cell.check()
         emit(args.out, workload=args.workload, run=what, seed=seed, seconds=time.perf_counter() - t0,
              checks={n: v for n, v, _ in checks})

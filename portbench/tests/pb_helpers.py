@@ -7,7 +7,7 @@ TINY_MODEL = dict(network="resnet_layers_1111-f16", n_image_feature_channels=24,
                   input_size=[32, 32])
 TINY_TRAFFIC = {
     "train_pool": dict(batch=4, pool_factor=4, traced_steps=1),
-    "lockstep": dict(recordings=2, frames=4, chunk=2, check_recordings=2, stage_passes=1),
+    "lockstep": dict(recordings=2, frames=4, chunk=2, check_recordings=2),
 }
 
 
