@@ -4,7 +4,9 @@
 driver tracks recordings with crops from the labelled per-frame poses and returns
 the reference's per-sequence payload (tracked and GT FK landmarks,
 validity), hands-major, as numpy. ``track_recording`` runs one recording in
-chunks; ``track_recordings_batched`` runs R recordings in lockstep. With
+chunks; ``track_recordings_batched`` runs R recordings in lockstep, and
+``track_recordings_unknown_skeleton`` the unknown-skeleton protocol's two
+passes and calibration over them. With
 ``pipelined=True`` (the default) each chunk is one
 ``track_chunk_eval[_batched]`` call: crops, warp and trunk batched over the
 chunk, the ConvRNN tail stepped per frame. With ``pipelined=False`` the
@@ -23,13 +25,14 @@ import dataclasses
 import itertools
 import os
 import time
-from typing import Iterable, List, Optional
+from typing import Callable, Iterable, List, Optional
 
 import numpy as np
 import torch
 
+from .calibration import CALIB_FRAMES, calibrated_scales
 from ..geometry import camera as cam
-from ..kinematics.hand_model import HandModel, stack_hand_models
+from ..kinematics.hand_model import HandModel, scaled_hand_model, stack_hand_models
 from ..kinematics.skinning import landmarks_from_hand_pose
 from ..models.checkpoint import load_any
 from ..models.config import ModelConfig
@@ -494,6 +497,56 @@ def track_recordings_batched(
         )
         for ri in range(r)
     ]
+
+
+@dataclasses.dataclass
+class UnknownSkeletonRun:
+    """The unknown-skeleton protocol over a group of recordings."""
+
+    calibration: List[SequenceResult]  # pass 1: the first frames on the generic skeleton, with scales
+    scales: List[float]  # each recording's calibrated user scale
+    results: List[SequenceResult]  # pass 2: the recording on its scaled skeleton
+
+
+def track_recordings_unknown_skeleton(
+    model: UmeTrackModel,
+    recordings: Callable[[], list],  # -> (HandPoseLabels, frame iterable) pairs, called once a pass
+    generic_mm: HandModel,
+    calib_mode: str = "gn",
+    chunk_size: int = 8,
+    pipelined: bool = True,
+    max_frames: Optional[int] = None,
+    mesh=None,
+) -> UnknownSkeletonRun:
+    """The unknown-skeleton protocol (reference run_eval_unknown_skeleton.py)
+    over R recordings in lockstep (``recordings()`` gives them, with frames
+    from their start, for each pass): pass 1 tracks each recording's first
+    ``CALIB_FRAMES`` (30) frames through the scale-predicting head, two views a
+    hand, crops driven through the generic skeleton; the calibration turns
+    the per-frame scales into one user scale a recording
+    (``calibration.calibrated_scales``: with ``gn`` one
+    batched solve over every (recording, hand) window and one readback);
+    pass 2 re-tracks each recording with a fresh state and
+    ``scaled_hand_model(generic_mm, scale)``. Both passes are
+    ``track_recordings_batched`` calls. Under a profiler the whole is an
+    ``eval.protocol`` span around ``eval.calib_pass`` (counts ``frames``),
+    ``eval.calibrate`` and ``eval.track_pass``."""
+    dev = model.device
+    with profiling.span("eval.protocol", dev):
+        with profiling.span("eval.calib_pass", dev) as calib_pass:
+            group = recordings()
+            calibration = track_recordings_batched(
+                model, group, hand_models_mm=[generic_mm] * len(group), calibrate_scale=True,
+                max_frames=CALIB_FRAMES, chunk_size=chunk_size, pipelined=pipelined, mesh=mesh,
+            )
+            calib_pass.count("frames", sum(c.valid_tracking.shape[1] for c in calibration))
+        scales = calibrated_scales(calibration, generic_mm, calib_mode, dev)
+        with profiling.span("eval.track_pass", dev):
+            results = track_recordings_batched(
+                model, recordings(), hand_models_mm=[scaled_hand_model(generic_mm, s) for s in scales],
+                max_frames=max_frames, chunk_size=chunk_size, pipelined=pipelined, mesh=mesh,
+            )
+    return UnknownSkeletonRun(calibration, scales, results)
 
 
 def frames_for(labels: HandPoseLabels, video_path: Optional[str], renderer: str = "mesh"):

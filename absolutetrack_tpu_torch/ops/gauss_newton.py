@@ -6,11 +6,12 @@
   iteration builds the (26 x 26) normal equations from the FK Jacobian
   (forward mode through the skinning) and solves them, with Levenberg
   damping.
-* ``calibrate_scale_window``: over T frames, jointly refine the per-frame
-  poses and one shared log-scale. The normal system is arrowhead (T pose
-  blocks and one scalar): every pose block is eliminated by batched
-  26 x 26 solves and the scalar Schur complement
-  S = sum_t (H_ss(t) - H_sp H_pp^-1 H_ps) is summed over the window.
+* ``calibrate_scale_windows``: over W windows of T frames, jointly refine
+  each window's per-frame poses and its one shared log-scale. Each normal
+  system is arrowhead (T pose blocks and one scalar): every pose block is
+  eliminated by 26 x 26 solves batched over all W x T frames and the scalar
+  Schur complement S = sum_t (H_ss(t) - H_sp H_pp^-1 H_ps) is summed over
+  each window. ``calibrate_scale_window`` is its one-window case.
 
 Wrist updates right-multiply an axis-angle increment (the linearization
 is around the identity each iteration); translation is in the landmarks'
@@ -111,17 +112,38 @@ def calibrate_scale_window(
     iters: int = 6,
     damping: float = 1e-3,
 ) -> FitResult:
-    """Joint poses + one shared log-scale over a temporal window (GN + Schur).
+    """Joint poses + one shared log-scale over a temporal window (GN + Schur):
+    the one-window case of ``calibrate_scale_windows``."""
+    res = calibrate_scale_windows(
+        hand, target_landmarks[None], init_joint_angles[None], init_wrist[None],
+        None if frame_mask is None else frame_mask[None], iters, damping,
+    )
+    return FitResult(*(x[0] for x in res))
+
+
+def calibrate_scale_windows(
+    hand: HandModel,  # unbatched left-canonical generic model
+    target_landmarks: torch.Tensor,  # (W, T, 21, 3), one hand over each window
+    init_joint_angles: torch.Tensor,  # (W, T, 22)
+    init_wrist: torch.Tensor,  # (W, T, 4, 4)
+    frame_mask: Optional[torch.Tensor] = None,  # (W, T)
+    iters: int = 6,
+    damping: float = 1e-3,
+) -> FitResult:
+    """W windows of T frames, each with its own per-frame poses and one
+    shared log-scale, fitted together (GN + Schur) -> fields (W, T, ...),
+    ``residual`` and ``log_scale`` (W,).
 
     Each iteration: per-frame residuals r_t(dp_t, ds) with J_p (63, 26) and
-    J_s (63,); the arrowhead normal system is reduced by eliminating every
-    pose block, S = sum_t (H_ss(t) - H_sp H_pp^-1 H_ps) + damping and
-    b = sum_t (g_s(t) - H_sp H_pp^-1 g_p(t)) give ds = -b / S, then each
-    frame's dp_t = -H_pp^-1 (g_p + H_ps ds).
+    J_s (63,); each window's arrowhead normal system is reduced by
+    eliminating every pose block, S = sum_t (H_ss(t) - H_sp H_pp^-1 H_ps) +
+    damping and b = sum_t (g_s(t) - H_sp H_pp^-1 g_p(t)) give its ds = -b / S,
+    then each frame's dp_t = -H_pp^-1 (g_p + H_ps ds). The W x T frames run
+    as one batch, so the launches do not grow with W.
     """
     dev, dtype = init_wrist.device, init_wrist.dtype
-    t_total = target_landmarks.shape[0]
-    mask = torch.ones(t_total, device=dev) if frame_mask is None else frame_mask.to(torch.float32)
+    n_w, n_t = target_landmarks.shape[:2]
+    mask = torch.ones(n_w, n_t, device=dev) if frame_mask is None else frame_mask.to(torch.float32)
     eye = torch.eye(N_POSE, dtype=dtype, device=dev)
     zero = torch.zeros(N_POSE, dtype=dtype, device=dev)
 
@@ -135,14 +157,21 @@ def calibrate_scale_window(
         r = residual(x, a0, w0, target)
         return J[:, :N_POSE] * m, J[:, N_POSE] * m, r * m
 
-    frames = vmap(per_frame, in_dims=(None, 0, 0, 0, 0))
-    angles, wrist = init_joint_angles, init_wrist
-    log_s = torch.zeros((), dtype=dtype, device=dev)
+    def flat(x):  # (W, T, ...) -> (W*T, ...)
+        return x.reshape((n_w * n_t,) + x.shape[2:])
+
+    def per_window(x):  # (W,) -> (W*T,)
+        return x[:, None].expand(n_w, n_t).reshape(-1)
+
+    frames = vmap(per_frame)
+    angles, wrist = flat(init_joint_angles), flat(init_wrist)
+    target, m = flat(target_landmarks), flat(mask)
+    log_s = torch.zeros(n_w, dtype=dtype, device=dev)
     for _ in range(iters):
-        J_p, J_s, r = frames(log_s, angles, wrist, target_landmarks, mask)
+        J_p, J_s, r = frames(per_window(log_s), angles, wrist, target, m)
         J_pt = J_p.transpose(-1, -2)
-        H_pp = J_pt @ J_p + damping * eye  # (T, 26, 26)
-        H_ps = (J_pt @ J_s[..., None])[..., 0]  # (T, 26)
+        H_pp = J_pt @ J_p + damping * eye  # (W*T, 26, 26)
+        H_ps = (J_pt @ J_s[..., None])[..., 0]  # (W*T, 26)
         H_ss = (J_s * J_s).sum(-1)
         g_p = (J_pt @ r[..., None])[..., 0]
         g_s = (J_s * r).sum(-1)
@@ -150,15 +179,17 @@ def calibrate_scale_window(
         Hinv_Hps = torch.linalg.solve_ex(H_pp, H_ps[..., None])[0][..., 0]
         S_t = H_ss - (H_ps * Hinv_Hps).sum(-1)
         b_t = g_s - (H_ps * Hinv_gp).sum(-1)
-        ds = -b_t.sum() / (S_t.sum() + damping)
+        ds = -b_t.view(n_w, n_t).sum(-1) / (S_t.view(n_w, n_t).sum(-1) + damping)  # (W,)
         # back-substitute the per-frame pose updates
-        dp = -torch.linalg.solve_ex(H_pp, (g_p + H_ps * ds)[..., None])[0][..., 0]
-        angles, wrist = _apply_delta(angles, wrist, dp * mask[:, None])
+        dp = -torch.linalg.solve_ex(H_pp, (g_p + H_ps * per_window(ds)[:, None])[..., None])[0][..., 0]
+        angles, wrist = _apply_delta(angles, wrist, dp * m[:, None])
         log_s = log_s + ds
 
     final = _landmarks(
-        hand.map(lambda x: x.expand((t_total,) + x.shape)), angles, wrist, log_scale=log_s.expand(t_total)
+        hand.map(lambda x: x.expand((n_w * n_t,) + x.shape)), angles, wrist, log_scale=per_window(log_s)
     )
-    err = torch.linalg.vector_norm(final - target_landmarks, dim=-1).mean(dim=-1)
-    res = (err * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return FitResult(joint_angles=angles, wrist=wrist, residual=res, log_scale=log_s)
+    err = torch.linalg.vector_norm(final - target, dim=-1).mean(dim=-1).view(n_w, n_t)
+    res = (err * mask).sum(-1) / torch.clamp(mask.sum(-1), min=1.0)
+    return FitResult(
+        joint_angles=angles.view(n_w, n_t, -1), wrist=wrist.view(n_w, n_t, 4, 4), residual=res, log_scale=log_s
+    )

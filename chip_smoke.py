@@ -43,7 +43,7 @@ before each:
   lockstep, N=128; unknown skeleton in lockstep with the mean and the
   Gauss-Newton calibration); ``load_eval``'s metrics of each run;
   lockstep against sequential, one recording against the port's CPU run,
-  the GN window card against CPU, a serving run (K1's bf16 rows at N=32)
+  the GN windows card against CPU, a serving run (K1's bf16 rows at N=32)
   and K1 at N=32 and N=128 against its plain version, with its times;
 * data (``data_phase``): the packed-data path: the protocol's label tree
   packed by ``pack_sample_data.main`` (views 1-2, windows of 8 frames;
@@ -145,7 +145,7 @@ SERVING_TAIL_ANGLE = 1e-6
 PROTOCOL_RECORDINGS = 4  # the label tree of the protocol phase
 PROTOCOL_FRAMES = 32  # per recording: four chunks
 PROTOCOL_CPU_FRAMES = 8  # one recording, the card against the port's CPU run
-GN_LOG_SCALE_TOL = 1e-5  # the GN window's log-scale, card against CPU
+GN_LOG_SCALE_TOL = 1e-5  # the GN windows' log-scales, card against CPU
 GN_RESIDUAL_TOL_MM = 1e-3  # its final mean landmark residual
 DATA_RECORDINGS = 4  # the data phase's label tree: the protocol's recordings
 DATA_FRAMES = 32
@@ -1581,14 +1581,14 @@ def protocol_phase(seed: int, device: str = "cuda", n_frames: int = PROTOCOL_FRA
     time and four in lockstep, unknown skeleton in lockstep with the mean
     and the Gauss-Newton calibration); ``load_eval.aggregate_metrics`` of
     each; lockstep against sequential; on the card also one recording
-    against the port's CPU run, the GN window card against CPU, a serving
+    against the port's CPU run, the GN windows card against CPU, a serving
     run (K1's bf16 rows) and K1 at the protocol's shapes against its plain
     version, with K1's launches counted from 0 before each CLI run."""
     import tempfile
 
     import torch
 
-    from absolutetrack_tpu_torch.apps import eval_lib, load_eval
+    from absolutetrack_tpu_torch.apps import calibration, eval_lib, load_eval
     from absolutetrack_tpu_torch.apps import run_eval_known_skeleton as known
     from absolutetrack_tpu_torch.apps import run_eval_unknown_skeleton as unknown
     from absolutetrack_tpu_torch.models.checkpoint import load_params, save_params
@@ -1601,7 +1601,7 @@ def protocol_phase(seed: int, device: str = "cuda", n_frames: int = PROTOCOL_FRA
     cfg = ModelConfig.tiny() if tiny else ModelConfig()
     p = cfg.input_size[0] * cfg.input_size[1]
     chunks = -(-n_frames // LOCKSTEP_CHUNK)
-    calib_chunks = -(-min(unknown.CALIB_FRAMES, n_frames) // LOCKSTEP_CHUNK)
+    calib_chunks = -(-min(calibration.CALIB_FRAMES, n_frames) // LOCKSTEP_CHUNK)
     slots = LOCKSTEP_CHUNK * 4  # a recording's crop slots a chunk
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
@@ -1652,7 +1652,7 @@ def protocol_phase(seed: int, device: str = "cuda", n_frames: int = PROTOCOL_FRA
 
         common = ["--input-dir", str(data), "--torch-device", device]
         unknown_args = common + ["--batch-recordings", str(r), "--generic-hand-model", str(generic_path)]
-        two_pass = r * (min(unknown.CALIB_FRAMES, n_frames) + n_frames)
+        two_pass = r * (min(calibration.CALIB_FRAMES, n_frames) + n_frames)
         # 3. known skeleton: one recording at a time (N=32 a chunk), then four in lockstep (N=128)
         run("known_b1", known, common + ["--batch-recordings", "1"], r * n_frames, {slots: r * chunks})
         run("known_b4", known, common + ["--batch-recordings", str(r)], r * n_frames, {r * slots: chunks})
@@ -1726,16 +1726,15 @@ def _cli(module, argv) -> tuple:
 
 def _protocol_on_card(root, data, generic_path, pt, runs, common, slots, chunks, p) -> dict:
     """The protocol phase's checks that need the card: one recording against
-    the port's CPU run, the device's busy time, a serving run, the GN window
+    the port's CPU run, the device's busy time, a serving run, the GN windows
     card against CPU, and K1 at the protocol's shapes (N = 32 and 128 crop slots) against its plain
     version in every row mode, with its times."""
     import shutil
 
     import torch
 
-    from absolutetrack_tpu_torch.apps import eval_lib
+    from absolutetrack_tpu_torch.apps import calibration, eval_lib
     from absolutetrack_tpu_torch.apps import run_eval_known_skeleton as known
-    from absolutetrack_tpu_torch.apps import run_eval_unknown_skeleton as unknown
     from absolutetrack_tpu_torch.kinematics.hand_model import load_hand_model_json
     from absolutetrack_tpu_torch.models.config import ModelConfig
     from absolutetrack_tpu_torch.ops import gauss_newton, warp_kernel
@@ -1780,24 +1779,24 @@ def _protocol_on_card(root, data, generic_path, pt, runs, common, slots, chunks,
                           k1_launches={f"N={slots}": chunks}, k1_row_modes={"bf16": chunks},
                           vs_parity_max_err_mm=serving_err)
 
-    # the GN window (T = CALIB_FRAMES, 6 iterations) on the same targets, card against CPU
+    # the GN windows of both hands (T = CALIB_FRAMES, 6 iterations) in one solve, card against CPU
     model = eval_lib.build_model(str(pt), ModelConfig(), device="cuda")
     labels = [load_labels(lf) for lf in known.find_label_files(str(data))]
     generic = load_hand_model_json(str(generic_path))
     calib = eval_lib.track_recording(
         model, labels[0], eval_lib.frames_for(labels[0], None), hand_model_mm=generic,
-        calibrate_scale=True, max_frames=unknown.CALIB_FRAMES,
+        calibrate_scale=True, max_frames=calibration.CALIB_FRAMES,
     )
-    window = unknown.gn_window_inputs(generic, calib, 0, "cpu")
-    if window is None:
-        raise RuntimeError("GN window: fewer than 2 valid frames")
+    windows = calibration.gn_windows(generic, [calib], "cpu")
+    if windows is None:
+        raise RuntimeError("GN windows: no hand has 2 valid frames")
     fits, ms = {}, {}
     for dev in ("cuda", "cpu"):
-        args = [x.to(dev) for x in window]
+        args = [x.to(dev) for x in windows[1:]]
         hand = generic.to(dev)
 
         def fit():
-            res = gauss_newton.calibrate_scale_window(hand, *args[:3], frame_mask=args[3], iters=6)
+            res = gauss_newton.calibrate_scale_windows(hand, *args[:3], frame_mask=args[3], iters=6)
             if dev == "cuda":
                 torch.cuda.synchronize()
             return res
@@ -1807,13 +1806,13 @@ def _protocol_on_card(root, data, generic_path, pt, runs, common, slots, chunks,
         for _ in range(3):
             fits[dev] = fit()
         ms[dev] = (time.perf_counter() - t0) / 3 * 1e3
-    gn_log_err = abs(float(fits["cuda"].log_scale) - float(fits["cpu"].log_scale))
-    gn_res_err = abs(float(fits["cuda"].residual) - float(fits["cpu"].residual))
+    gn_log_err = float((fits["cuda"].log_scale.cpu() - fits["cpu"].log_scale).abs().max())
+    gn_res_err = float((fits["cuda"].residual.cpu() - fits["cpu"].residual).abs().max())
     if not gn_log_err <= GN_LOG_SCALE_TOL or not gn_res_err <= GN_RESIDUAL_TOL_MM:
-        raise RuntimeError(f"GN window card vs CPU: log-scale {gn_log_err}, residual {gn_res_err} mm")
+        raise RuntimeError(f"GN windows card vs CPU: log-scale {gn_log_err}, residual {gn_res_err} mm")
     out["gn_window"] = dict(
-        frames=int(window[0].shape[0]), iterations=6, card_ms=ms["cuda"], cpu_ms=ms["cpu"],
-        log_scale=float(fits["cuda"].log_scale), residual_mm=float(fits["cuda"].residual),
+        windows=len(windows[0]), frames=int(windows[1].shape[1]), iterations=6, card_ms=ms["cuda"],
+        cpu_ms=ms["cpu"], log_scale=fits["cuda"].log_scale.tolist(), residual_mm=fits["cuda"].residual.tolist(),
         log_scale_err=gn_log_err, log_scale_tol=GN_LOG_SCALE_TOL,
         residual_err_mm=gn_res_err, residual_tol_mm=GN_RESIDUAL_TOL_MM,
     )

@@ -13,6 +13,9 @@ calibrated scales 1e-5 relative and its pickles as
 ``tests/test_torch_protocol.py``.
 """
 
+from collections import Counter
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +26,7 @@ import chip_smoke
 from absolutetrack_tpu.apps import run_eval_unknown_skeleton as junknown
 from absolutetrack_tpu.kinematics import hand_model as jhm
 from absolutetrack_tpu.ops import gauss_newton as jgn
+from absolutetrack_tpu_torch.apps import calibration
 from absolutetrack_tpu_torch.apps import run_eval_unknown_skeleton as unknown
 from absolutetrack_tpu_torch.kinematics import hand_model as hm
 from absolutetrack_tpu_torch.kinematics.skinning import skin_landmarks
@@ -117,6 +121,90 @@ def test_calibrate_scale_window_matches_jax(hands, masked):
     np.testing.assert_allclose(float(t.log_scale), float(j.log_scale), atol=1e-5)
     _assert_fit_close(j, t)
     np.testing.assert_allclose(float(np.exp(t.log_scale.numpy())), 1.13, rtol=5e-3)
+
+
+def _windows(th, rng, n_w, t_len):
+    angles = rng.uniform(-0.4, 0.6, (n_w, t_len, 22)).astype(np.float32)
+    wr = np.broadcast_to(np.eye(4, dtype=np.float32), (n_w, t_len, 4, 4)).copy()
+    wr[..., :3, 3] = rng.uniform(-30, 30, (n_w, t_len, 3))
+    scale = rng.uniform(0.85, 1.15, (n_w, 1)).repeat(t_len, 1).astype(np.float32)
+    h = hm.scaled_hand_model(th.map(lambda x: x.expand((n_w, t_len) + x.shape)), torch.from_numpy(scale))
+    target = skin_landmarks(h, torch.from_numpy(angles), torch.from_numpy(wr))
+    init = torch.from_numpy(angles + rng.uniform(-0.1, 0.1, angles.shape).astype(np.float32))
+    return target, init, torch.from_numpy(wr), scale[:, 0]
+
+
+def test_calibrate_scale_windows_equals_one_window_at_a_time(hands):
+    """W = 5 windows in one solve as five ``calibrate_scale_window`` calls
+    (held against JAX above): a full window, one with a single valid frame,
+    one fully masked, two partly masked."""
+    _, th = hands
+    target, init, wr, scale = _windows(th, np.random.default_rng(5), 5, 6)
+    mask = torch.ones(5, 6)
+    mask[1, 1:] = 0.0
+    mask[2] = 0.0
+    mask[3, ::2] = 0.0
+    mask[4, -2:] = 0.0
+    target[mask == 0] += 50.0  # what the mask hides must not count
+    both = gn.calibrate_scale_windows(th, target, init, wr, frame_mask=mask, iters=6)
+    assert both.log_scale.shape == (5,) and both.residual.shape == (5,)
+    for w in range(5):
+        one = gn.calibrate_scale_window(th, target[w], init[w], wr[w], frame_mask=mask[w], iters=6)
+        for field in ("log_scale", "residual", "joint_angles", "wrist"):
+            torch.testing.assert_close(getattr(both, field)[w], getattr(one, field), rtol=0, atol=1e-6)
+    assert float(both.log_scale[2]) == 0.0 and float(both.residual[2]) == 0.0  # nothing to fit
+    np.testing.assert_allclose(np.exp(both.log_scale.numpy())[[0, 1, 3, 4]], scale[[0, 1, 3, 4]], rtol=5e-3)
+
+
+def test_calibrate_scale_windows_has_no_per_window_loop(hands):
+    """The same aten ops, as many times each, at W = 2 and at W = 16 (the
+    ops the solver issues; LAPACK's batched solve on the CPU loops over its
+    matrices inside one ``linalg_solve_ex``, so ops within ops are not
+    counted)."""
+    _, th = hands
+
+    def ops(n_w):
+        target, init, wr, _ = _windows(th, np.random.default_rng(6), n_w, 4)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            gn.calibrate_scale_windows(th, target, init, wr, frame_mask=torch.ones(n_w, 4), iters=2)
+        return Counter(e.name for e in prof.events() if e.name.startswith("aten::")
+                       and not (e.cpu_parent is not None and e.cpu_parent.name.startswith("aten::")))
+
+    small, large = ops(2), ops(16)
+    assert sum(small.values()) > 100 and small["aten::linalg_solve_ex"] == 2 * 3
+    assert small == large
+
+
+def _calib(rng, th, t_len, valid):
+    """A pass-1 result of ``t_len`` frames (world wrists in mm, the right
+    hand mirrored) with the given (2, T) validity and per-frame scales."""
+    angles = rng.uniform(-0.2, 0.5, (2, t_len, 22)).astype(np.float32)
+    wr = np.broadcast_to(np.eye(4, dtype=np.float32), (2, t_len, 4, 4)).copy()
+    wr[..., :3, 3] = rng.uniform(-80, 80, (2, t_len, 3)) + [0, 0, 350]
+    wr[1, ..., :, 0] *= -1
+    return SimpleNamespace(
+        valid_tracking=np.asarray(valid, bool), joint_angles=angles, wrist_xfs=wr,
+        predicted_scales=rng.uniform(0.9, 1.1, (2, t_len)).astype(np.float32),
+    )
+
+
+def test_calibrated_scales_of_a_group_match_jax(hands):
+    """One batched solve over a group of recordings of different lengths
+    gives each recording the scale of JAX's per-recording GN calibration: a
+    hand under 2 valid frames is left out, a recording where neither hand
+    has 2 gets 1.0."""
+    jh, th = hands
+    rng = np.random.default_rng(7)
+    calibs = [
+        _calib(rng, th, 5, [[1, 1, 1, 0, 1], [1, 1, 1, 1, 1]]),
+        _calib(rng, th, 3, [[0, 1, 0], [1, 1, 1]]),
+        _calib(rng, th, 4, [[1, 0, 0, 0], [0, 0, 0, 1]]),
+    ]
+    got = calibration.calibrated_scales(calibs, th, "gn", "cpu")
+    want = [junknown.calibrated_scale_from(c, jh, "gn") for c in calibs]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert got[2] == 1.0
+    assert got[1] == unknown.calibrated_scale_from(calibs[1], th, "gn", "cpu")
 
 
 # -- the reference's properties, on the synthetic hand ----------------------------

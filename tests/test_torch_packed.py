@@ -408,11 +408,9 @@ def test_entry_points_default_to_the_card(tree, monkeypatch):
         joint_angles=np.zeros((2, 3, 22), np.float32), wrist_xfs=np.tile(np.eye(4, dtype=np.float32), (2, 3, 1, 1)),
     )
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        unknown.gn_window_scale(generic, calib, 0)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
         unknown.calibrated_scale_from(calib, generic, "gn")
     assert unknown.calibrated_scale_from(calib, generic, "mean") == 1.0  # no device needed
-    assert unknown.gn_window_scale(generic, calib, 0, device="cpu") == pytest.approx(1.0, abs=1e-4)
+    assert unknown.calibrated_scale_from(calib, generic, "gn", device="cpu") == pytest.approx(1.0, abs=1e-4)
 
 
 def test_chip_smoke_data_phase_on_the_cpu():

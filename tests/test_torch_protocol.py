@@ -35,7 +35,7 @@ from absolutetrack_tpu.apps import load_eval as jload_eval
 from absolutetrack_tpu.apps import run_eval_known_skeleton as jknown
 from absolutetrack_tpu.apps import run_eval_unknown_skeleton as junknown
 from absolutetrack_tpu.kinematics import metrics as JM
-from absolutetrack_tpu_torch.apps import load_eval
+from absolutetrack_tpu_torch.apps import calibration, load_eval
 from absolutetrack_tpu_torch.apps import run_eval_known_skeleton as known
 from absolutetrack_tpu_torch.apps import run_eval_unknown_skeleton as unknown
 from absolutetrack_tpu_torch.kinematics import metrics as M
@@ -249,9 +249,9 @@ def test_robust_scale_matches_jax():
     rng = np.random.default_rng(2)
     scales = np.concatenate([rng.normal(1.0, 0.02, 28), [1.6, 1.8]]).astype(np.float32)
     for mode in ("mean", "lstsq"):
-        assert unknown.robust_scale(scales, mode) == junknown.robust_scale(scales, mode)
-    assert unknown.robust_scale(scales[:0]) == 1.0
-    assert abs(unknown.robust_scale(scales, "lstsq") - 1.0) < abs(unknown.robust_scale(scales, "mean") - 1.0)
+        assert calibration.robust_scale(scales, mode) == junknown.robust_scale(scales, mode)
+    assert calibration.robust_scale(scales[:0]) == 1.0
+    assert abs(calibration.robust_scale(scales, "lstsq") - 1.0) < abs(calibration.robust_scale(scales, "mean") - 1.0)
 
 
 def test_cli_skips_existing_results_and_refuses_a_mesh(tree):

@@ -27,6 +27,7 @@ from absolutetrack_tpu_torch.utils import profiling
 CFG = ModelConfig.tiny()
 EVAL_STAGES = ["assemble", "upload", "crop_slots", "warp_and_inputs", "trunk", "scan_tail", "fk"]
 TRAIN_CHILDREN = ["train.forward", "train.backward", "train.optimizer"]
+PROTOCOL_CHILDREN = ["eval.calib_pass", "eval.calibrate", "eval.track_pass"]
 
 
 def cpu_profile():
@@ -178,6 +179,41 @@ def test_no_profiler_no_span_event_or_marker(monkeypatch, lockstep, train_case):
     eval_lib.track_recordings_batched(model, recs, chunk_size=8)
     step, state, batch, hand = train_case
     step(state, batch, hand)
+
+
+def test_unknown_skeleton_protocol_spans(lockstep):
+    """The protocol is one ``eval.protocol`` span around its two passes and
+    the calibration; each pass's chunks nest in it, the solve in the
+    calibration, and the counters count pass 1's frames and the solve's
+    windows, valid frames and iterations."""
+    model, recs = lockstep
+    with cpu_profile():
+        run = eval_lib.track_recordings_unknown_skeleton(model, lambda: recs, recs[0][0].hand_model, "gn")
+    got = profiling.spans()
+    assert names(got, None) == ["eval.protocol"]
+    assert names(got, 0) == PROTOCOL_CHILDREN
+    at = {s["name"]: i for i, s in enumerate(got) if s["parent"] == 0}
+    chunks = ["eval.chunk", "eval.chunk", "eval.readback"]  # 16 frames (under the 30 of a calibration), chunks of 8
+    assert names(got, at["eval.calib_pass"]) == chunks and names(got, at["eval.track_pass"]) == chunks
+    assert names(got, at["eval.calibrate"]) == ["eval.gn_solve"]
+    assert got[at["eval.calib_pass"]]["counts"] == {"frames": 2 * 16}
+    valid = sum(int(c.valid_tracking.sum()) for c in run.calibration)
+    assert valid >= 2 * 2 * 2
+    assert got[at["eval.calibrate"]]["counts"] == {"windows": 4, "valid_frames": valid, "iters": 6}
+    assert [len(r.valid_tracking[0]) for r in run.results] == [16, 16] and len(run.scales) == 2
+
+
+def test_unknown_skeleton_protocol_without_a_profiler(monkeypatch, lockstep):
+    """Without a profiler the protocol makes no span, no CUDA event and no marker."""
+
+    def refuse(*a, **kw):
+        raise AssertionError("called without a profiler")
+
+    monkeypatch.setattr(profiling, "Span", refuse)
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    model, recs = lockstep
+    eval_lib.track_recordings_unknown_skeleton(model, lambda: recs, recs[0][0].hand_model, "gn")
 
 
 @pytest.mark.cuda
